@@ -13,8 +13,11 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    variants K4f and K4x and the packed grid with the recorder (K4 x K3), at
    two group slots, and the generic group slots (K5c) at K = 3 and 4, for
    the miner counts this script runs (9 and 4), and the wide variants (K1w,
-   K2w) for the 17- to 40-miner rosters, one ``nvcc`` per library, all
-   started together, each library's registers and spills printed;
+   K2w) for the 17- to 40-miner rosters, the raw-word (K5a) and one-hot
+   (K5b) variants and both (at M = 9 plain, with the ring and packed, exact
+   at K = 4, packed at M = 4, wide at 32 miners) and the layout
+   micro-benchmarks (S1), one ``nvcc`` per library, all started together,
+   each library's registers and spills printed;
 3. sampler: threefry words, winner indices and the interval mapping on the
    card bit-equal to the CPU's (the mapping over all 2^24 uniforms at the
    600 s and 60 s means);
@@ -35,7 +38,7 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    then the same for the packed-grid kernels K4f and K4x (with and without
    SELFISH), with per-run delays from 100 ms to 60 s and per-run selfish
    flags (some lanes wholly honest): one chunk at 1000 runs in each pack
-   variant, a 4-point x 64-run x 30-day packed dispatch, the main path's
+   variant, a 4-point x 64-run x 10-day packed dispatch, the main path's
    chunks (the selfish-hashrate sweep's first dispatch, K4x, and the
    propagation sweep's fast pack, K4f, each 8192 runs), timed and counted,
    and a 3-point x 64-run x 2-day packed grid on the card against the CPU;
@@ -43,7 +46,7 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    int16 and int32, on a crowded 4-miner roster (the buffer fills and, at
    K = 3, overflows) and the 9-miner rosters, and at K = 4 with the ring,
    packed and packed with the ring: one chunk at 1000 runs each, the main
-   path's chunks at K = 4 in each mode, timed and counted, and a 256-run
+   path's chunks at K = 4 in each mode, timed and counted, and a 64-run
    K = 4 batch on the card against the CPU; then K4 x K3, fast and exact
    with and without SELFISH, rings of 64 and 2048: one chunk at 1000 runs
    each, the main path's chunks (the selfish-hashrate dispatch and the
@@ -56,8 +59,15 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    at K = 4: one chunk at 1000 runs each, the main path's chunks (path
    W1's roster, K1w; hetero32, K2w, its plain version on 1,024 runs, the
    cp update's accesses counted as device-memory bytes once cp passes the
-   L2), timed and counted, and a 64-run x 2-day batch of each roster on
-   the card against the CPU;
+   L2), timed and counted, and a 2-day batch of each roster (64 runs; hetero32 16) on
+   the card against the CPU; then the raw-word (K5a) and one-hot (K5b)
+   variants: the raw-word mapping alone over all 2^24 uniforms at four
+   means, and the thresholds' edge words, against ``sampling``'s; the main
+   path's chunk for each knob in each mode (default roster fast, selfish
+   roster exact), timed and counted (the bound adds the mapping's
+   operations per find, or the contraction's cp loads); one chunk at 1000
+   runs of each knob and of both together, with the ring, packed (per-run
+   thresholds and means), at K = 4 and wide at 32 miners;
 5. main paths, each through ``tpusim_torch.api.run_simulation`` at full
    width (9 miners, one year, 32,768 runs in batches of 8,192) with the
    launch counts set to 0 just before and read just after: the reference
@@ -93,7 +103,20 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    cut to ``W2_DAYS``, through ``sweep.run_sweep`` sequentially (K2w only)
    and packed (K2w packed only), whose rows must be equal, miner 31's
    stale rate above miner 0's; then the trace entry point on hetero32,
-   1024 runs x 2 days (K2w with the ring).
+   1024 runs x 2 days (K2w with the ring);
+9. the legacy knobs' paths: the selfish and the default roster at 8,192
+   runs x one year through ``python -m tpusim_torch --config``
+   (``cli.main``) with ``rng_batch`` off (K5a), ``consensus_gather`` off
+   (K5b) and both off with un-rebased int32 counts (the reference's LEGACY
+   configuration), each launching its variant once a chunk and nothing
+   else, each output JSON equal to the knobs-on run's; a packed
+   propagation grid of three points with ``rng_batch`` off (the packed
+   raw-word variants), rows equal to the knobs-on rows; and the trace
+   command on the selfish roster with both knobs off, its JSONL
+   byte-identical to the knobs-on trace's;
+10. the layout micro-benchmarks (S1) through ``python -m tpusim_torch.micro``
+   (``micro.main``) at R = 8,192 lanes and N = 512 iterations, then each
+   op's kernel against its plain version.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. The build log (with the compiler's
@@ -123,6 +146,7 @@ OUT = ROOT / "smoke_out"
 #: and its L2 cache.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+FP32_FLOPS_PER_S = 67e12
 L2_BYTES = 50e6
 
 #: A chunk compared at this many runs: not a multiple of the kernels'
@@ -200,6 +224,44 @@ def cp_update_accesses(torch, m: int, a):
     return torch.where(a > 0, a * m * m + (m - a) * a * m + (m - a - 1) * m, 0)
 
 
+#: The raw-word mapping of one find's two words (K5a), counted from
+#: event_loop_common.cuh: log1p_neg and the interval's scaling take 87 float32
+#: operations (a multiply-add counted as two), and the threshold compares 4
+#: int32 operations a miner plus 5 for the bits of the interval word.
+RAW_MAP_FLOPS = 87
+
+
+def raw_map_int_ops(m: int) -> int:
+    return 4 * m + 5
+
+
+def onehot_cp_loads(torch, m: int, a):
+    """cp loads the one-hot read of the cp plane adds on an event with ``a``
+    adopting miners (per run; K5b): the contraction reads all M^3 entries of
+    cp where the gather reads only the M - a - 1 rows it copies
+    (:func:`cp_update_accesses`)."""
+    return torch.where(a > 0, m**3 - (m - a - 1) * m, 0)
+
+
+def onehot_ops(m: int, adopt_steps: int, contraction_loads: int) -> int:
+    """int32 operations of the one-hot reads (K5b): on every event in which
+    some miner adopts, 2 M + 2 reads of b's entries (height, own count, the
+    own_cp column and own_in row) as contractions of M multiply-adds, two
+    operations each; and two per contraction load of cp."""
+    return adopt_steps * (2 * m + 2) * 2 * m + 2 * contraction_loads
+
+
+def micro_ops(op: str, r: int, iters: int) -> int:
+    """int32 operations of ``iters`` iterations of an S1 op at ``r`` lanes,
+    counted from csrc/micro.cu (M = 9): sel3 3 per (i, j) and 3 per entry;
+    sel_flat 6 per entry; reshape 2 per entry; repeat and tile 9 adds (the
+    broadcast moves no arithmetic); segsum 81 adds and 72 for the row sums;
+    contract a multiply and an add per cp entry."""
+    per = dict(sel3=81 * 3 + 729 * 3, sel_flat=729 * 6, reshape=81 * 2, repeat=9, tile=9,
+               segsum=81 + 72, contract=729 * 2)[op]
+    return per * r * iters
+
+
 def timed(torch, fn, repeat: int) -> float:
     """Mean ms of ``fn`` over ``repeat`` calls, after one warm-up call, by
     CUDA events on the current stream."""
@@ -259,14 +321,16 @@ def main() -> None:
     try:
         import numpy as np
 
-        from tpusim_torch import api, event_loop, flight_export, packed, sweep, threefry
+        from tpusim_torch import api, cli, event_loop, flight_export, micro, packed, sweep, threefry
         from tpusim_torch.config import (
             MinerConfig, NetworkConfig, SimConfig, default_network, hetero_selfish_network,
             reference_selfish_network,
         )
         from tpusim_torch.csrc import build
         from tpusim_torch.engine import Engine, counters_to_kernel
-        from tpusim_torch.event_loop import event_loop_chunk_plain, state_to_kernel
+        from tpusim_torch.event_loop import (
+            event_loop_chunk_plain, make_sampler, map_raw_words, state_to_kernel,
+        )
         from tpusim_torch.flight import flight_to_kernel
         from tpusim_torch.sampling import interval_from_bits, winners_from_bits
     except ImportError as e:
@@ -296,7 +360,8 @@ def main() -> None:
     # K4 x K3); the generic slots (K5c) at K = 3 and 4 in both modes; and at
     # K = 4 the exact kernel's flight, packed and packed flight variants.
     t0 = time.perf_counter()
-    libs = [(name, m, 2) for name in build.SOURCES if "_wide" not in name for m in (9, 4)]
+    libs = [(name, m, 2) for name in build.SOURCES
+            if not any(v in name for v in ("_wide", "_raw", "_onehot")) for m in (9, 4)]
     libs += [(name, m, k) for name in ("event_loop_fast", "event_loop_exact") for m in (9, 4)
              for k in (3, 4)]
     libs += [(name, 4, 4) for name in ("event_loop_exact_flight", "event_loop_exact_packed",
@@ -308,23 +373,46 @@ def main() -> None:
     libs += [(f"event_loop_{mode}_wide{v}", 32, 2) for mode in ("fast", "exact")
              for v in ("_flight", "_packed")]
     libs += [(f"event_loop_{mode}_wide", 32, 4) for mode in ("fast", "exact")]
+    # The raw-word (K5a) and one-hot (K5b) variants: each mode at M = 9
+    # plain, with the ring and packed, exact mode at K = 4; packed at M = 4
+    # (per-run means); wide at 32 miners; both knobs at M = 9, and with the ring in
+    # exact mode (the legacy trace); and the layout micro-benchmarks (S1).
+    libs += [(f"event_loop_{mode}{knobs}{v}", 9, 2) for mode in ("fast", "exact")
+             for knobs in ("_raw", "_onehot") for v in ("", "_flight", "_packed")]
+    libs += [(f"event_loop_exact{knobs}", 9, 4) for knobs in ("_raw", "_onehot")]
+    libs += [(f"event_loop_{mode}_raw_packed", 4, 2) for mode in ("fast", "exact")]
+    libs += [(f"event_loop_{mode}_wide{knobs}", 32, 2) for mode in ("fast", "exact")
+             for knobs in ("_raw", "_onehot")]
+    libs += [(name, 9, 2) for name in ("event_loop_fast_raw_onehot", "event_loop_exact_raw_onehot",
+                                       "event_loop_exact_raw_onehot_flight")]
+    libs += [(build.MICRO, 0, 0)]
     built = build.build(libs)
     for lib in built:
-        build.load_library(*lib)
+        if lib[0] != build.MICRO:
+            build.load_library(*lib)
+    build.load_micro()
     record["build_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_build.log").write_text("".join(
-        f"== {n} ({build.SOURCES[n].name}), M = {m}, K = {k}\n{log}"
+        f"== {n}, M = {m}, K = {k}\n{log}"
         for (n, m, k), (_, _, log) in built.items()))
     for (name, m, k), (path, secs, log) in built.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"[build] {name} ({build.SOURCES[name].name}) M = {m} K = {k} -> {path.name} "
+        print(f"[build] {name} M = {m} K = {k} -> {path.name} "
               f"({secs:.1f} s compiling): {max(regs, default=0)} registers, spill stores "
               f"{min(spills, default=0)}-{max(spills, default=0)} B over {len(regs)} "
               f"instantiations")
         record[f"build_{name}_m{m}_k{k}"] = dict(s=secs, registers=regs, spill_stores=spills)
     print(f"[build] {len(built)} libraries in {record['build_s']:.1f} s in all, one nvcc per "
           f"library in parallel")
+    # The one-hot exact kernel (K5b) against the gather one: whether nvcc
+    # kept the contraction's M-plane loads of cp or folded them to one plane.
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    for name in ("event_loop_exact", "event_loop_exact_onehot"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(built[name, 9, 2][0])],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        record[f"sass_global_loads_{name}_m9"] = sass.count("LDG")
+        print(f"[build] {name} M = 9: {sass.count('LDG')} global loads (LDG) in its SASS")
 
     def stamp(phase: str) -> None:
         """Seconds since the start at the end of ``phase``, printed and kept."""
@@ -383,13 +471,18 @@ def main() -> None:
         return (e._rows(keys, chunk), cap, prop, state_to_kernel(state), counters_to_kernel(ctr),
                 selfish, None if fr is None else flight_to_kernel(fr))
 
-    def compare_variants(kernel: str, variants, mode: str, capacities=(0,), slots: int = 2) -> int:
+    def compare_variants(kernel: str, variants, mode: str, capacities=(0,), slots: int = 2,
+                         knobs: dict | None = None) -> int:
+        """One chunk of ``kernel`` at ``RUNS_CMP`` runs against its plain
+        version, in each (state dtype, count re-base, roster) of
+        ``variants`` at each ring capacity; ``knobs`` (``rng_batch``,
+        ``consensus_gather``) select the raw-word and one-hot variants."""
         err = 0
         for state_dtype, rebase, net in variants:
             for capacity in capacities:
                 vcfg = SimConfig(network=net, duration_ms=CMP_DAYS * 86_400_000, mode=mode,
                                  state_dtype=state_dtype, count_rebase=rebase,
-                                 flight_capacity=capacity, group_slots=slots)
+                                 flight_capacity=capacity, group_slots=slots, **(knobs or {}))
                 ve = Engine(vcfg, dev)
                 check(ve.exact == kernel.startswith("event_loop_exact"),
                       f"{vcfg} runs the other mode")
@@ -398,9 +491,11 @@ def main() -> None:
                 state, aux, _ = ve._chunk(state, aux, tcap, vkeys, 0)
                 if capacity and rebase:
                     check(bool(aux[1].h_base.any()), f"{kernel}: h_base still 0 after a chunk")
-                args = chunk_args(ve, vkeys, state, aux, 1, ragged_cap)
-                got = event_loop.event_loop_chunk(*args)
-                err = max(err, max_abs_err(got, event_loop_chunk_plain(*args),
+                args, kw = chunk_args(ve, vkeys, state, aux, 1, ragged_cap), ve.loop_options()
+                before = event_loop.launches[kernel]
+                got = event_loop.event_loop_chunk(*args, **kw)
+                check(event_loop.launches[kernel] == before + 1, f"{kernel} did not launch")
+                err = max(err, max_abs_err(got, event_loop_chunk_plain(*args, **kw),
                                            f"{kernel} chunk {state_dtype} rebase={rebase} "
                                            f"capacity={capacity} {net}"))
                 if capacity == 64:
@@ -409,7 +504,8 @@ def main() -> None:
         print(f"[{kernel}] one chunk x {RUNS_CMP} runs ({CMP_DAYS} d config): kernel == plain in "
               f"{len(variants)} state/roster variants"
               + (f" x ring capacities {capacities}" if capacities != (0,) else "")
-              + (f" at K = {slots} group slots" if slots != 2 else ""))
+              + (f" at K = {slots} group slots" if slots != 2 else "")
+              + (f", {knobs}" if knobs else ""))
         return err
 
     def compare_batch(kernel: str, network, capacity: int = 0) -> None:
@@ -439,26 +535,28 @@ def main() -> None:
         mcap = torch.full((runs,), 2**29, dtype=torch.int32, device=dev)
         state, aux = me._init(mkeys)
         state, aux, _ = me._chunk(state, aux, mcap, mkeys, 0)
-        args = chunk_args(me, mkeys, state, aux, 1, mcap)
+        args, kw = chunk_args(me, mkeys, state, aux, 1, mcap), me.loop_options()
         rows, _, prop, leaves, counters, selfish, fl = args
-        got = event_loop.event_loop_chunk(*args)
+        got = event_loop.event_loop_chunk(*args, **kw)
         if plain_runs is None:
-            want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*args))
+            want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*args, **kw))
             err = max_abs_err(got, want, f"{kernel} main-path chunk")
         else:
             cut = lambda x: x[..., :plain_runs].contiguous() if torch.is_tensor(x) and (
                 x.shape[-1] == runs) else x
             sub = tuple(tuple(cut(x) for x in a) if isinstance(a, tuple) else cut(a)
                         for a in args)
-            want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*sub))
-            err = max_abs_err(event_loop.event_loop_chunk(*sub), want,
+            kw_sub = dict(kw, sampler=kw["sampler"] and type(kw["sampler"])(
+                *(cut(x) for x in kw["sampler"])))
+            want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*sub, **kw_sub))
+            err = max_abs_err(event_loop.event_loop_chunk(*sub, **kw_sub), want,
                               f"{kernel} main-path chunk, first {plain_runs} runs")
             err = max(err, max_abs_err(tuple(tuple(cut(x) for x in part) if part else part
                                              for part in got), want,
                                        f"{kernel} main-path chunk against its own first "
                                        f"{plain_runs} runs"))
         del want
-        kernel_ms = timed(torch, lambda: event_loop.event_loop_chunk(*args), repeat=repeat)
+        kernel_ms = timed(torch, lambda: event_loop.event_loop_chunk(*args, **kw), repeat=repeat)
         active = int((got[1][2].long() - counters[2].long()).sum())
         h_idx = event_loop.EXACT_LEAVES.index("height") if me.exact else FAST_HEIGHT
         midx = torch.arange(m, device=dev)[:, None]
@@ -466,14 +564,18 @@ def main() -> None:
         adopts = torch.zeros((), dtype=torch.int64, device=dev)
         adopt_steps = torch.zeros((), dtype=torch.int64, device=dev)
         cp_accesses = torch.zeros((), dtype=torch.int64, device=dev)
+        contraction_loads = torch.zeros((), dtype=torch.int64, device=dev)
         out = (leaves, counters, fl)
         for s in range(me.chunk_steps):
             lv = out[0]
             found = (lv[0][0] < mcap) & (lv[0][0] == lv[1][0])
-            ow = (midx == rows[s, 0][None]) & found
+            # The step's winner: the row's, or mapped from its raw word.
+            wq = rows[s, 0] if kw["sampler"] is None else winners_from_bits(
+                rows[s, 0].long() & 0xFFFFFFFF, me.params.thresholds)
+            ow = (midx == wq[None]) & found
             h0 = lv[h_idx]
             out = event_loop.event_loop_chunk(rows[s:s + 1], mcap, prop, *out[:2], selfish,
-                                              out[2])
+                                              out[2], **kw)
             finds += found.sum()
             # A miner adopts iff its height rose past its own find.
             a = ((out[0][h_idx].long() - h0.long() - ow.long()) > 0).sum(0)  # adopters per run
@@ -481,9 +583,11 @@ def main() -> None:
             adopt_steps += (a > 0).sum()
             if me.exact:
                 cp_accesses += cp_update_accesses(torch, m, a).sum()
+                if kw["onehot"]:
+                    contraction_loads += onehot_cp_loads(torch, m, a).sum()
         max_abs_err(out, got, f"{kernel} main-path chunk replayed one step per launch")
         finds, adopts, cp_accesses = int(finds), int(adopts), int(cp_accesses)
-        adopt_steps = int(adopt_steps)
+        adopt_steps, contraction_loads = int(adopt_steps), int(contraction_loads)
         del out
         ring = fl or ()
         recorded = int((got[2][1].long() - fl[1].long()).sum()) if fl else 0
@@ -492,18 +596,30 @@ def main() -> None:
         # Each input read once and each output written once: the ring's
         # recorded rows land in its output copy, so they are inside it.
         nbytes += 2 * sum(x.numel() * x.element_size() for x in leaves + counters + ring)
+        nbytes += sum(x.numel() * x.element_size() for x in kw["sampler"] or ())
         if me.exact:
-            nbytes += cp_hbm_bytes(leaves[event_loop.EXACT_LEAVES.index("cp")], cp_accesses)
+            nbytes += cp_hbm_bytes(leaves[event_loop.EXACT_LEAVES.index("cp")],
+                                   cp_accesses + contraction_loads)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         k = me.group_slots
         ops = (exact_kernel_ops(m, active, finds, adopts, cp_accesses, k) if me.exact
                else fast_kernel_ops(m, active, finds, k))
         if fl:
             ops += flight_ops(m, active, adopt_steps, k)
+        if kw["onehot"]:
+            ops += onehot_ops(m, adopt_steps, contraction_loads)
         ops_ms = ops / INT32_OPS_PER_S * 1e3
+        if kw["sampler"] is not None:
+            # The mapping of each find's words: float32 at the card's float
+            # rate, the threshold compares at its int32 rate.
+            ops += finds * raw_map_int_ops(m)
+            ops_ms += finds * (raw_map_int_ops(m) / INT32_OPS_PER_S
+                               + RAW_MAP_FLOPS / FP32_FLOPS_PER_S) * 1e3
         bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
         ring_note = (f", ring capacity {fl[0].shape[0]}: {recorded} rows recorded, "
                      f"{adopt_steps} adopting events" if fl else "")
+        if kw["onehot"]:
+            ring_note += f", {adopt_steps} adopting events, {contraction_loads} contraction loads"
         plain_note = f" on its first {plain_runs} runs" if plain_runs else ""
         print(f"[{label}] main-path chunk ({runs} runs x {me.chunk_steps} steps, M = {m}, "
               f"K = {k}, {active} active events, {finds} finds, {adopts} adopting pairs, "
@@ -523,7 +639,7 @@ def main() -> None:
                     bound_by=bound_by, chunk_active_events=active, chunk_finds=finds,
                     chunk_adopting_pairs=adopts, chunk_cp_accesses=cp_accesses,
                     chunk_adopting_events=adopt_steps, chunk_rows_recorded=recorded,
-                    chunk_bytes=nbytes, chunk_ops=ops,
+                    chunk_bytes=nbytes, chunk_ops=ops, chunk_contraction_loads=contraction_loads,
                     bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, sampler_ms=sampler_ms,
                     chunk_ms=chunk_ms)
 
@@ -551,7 +667,6 @@ def main() -> None:
     stats = {}
     err1 = compare_variants("event_loop_fast", (
         ("int16", True, default_network()), ("int32", True, default_network()),
-        ("int16", False, default_network()), ("int16", True, default_network(10_000)),
         ("auto", True, bursty),
     ), "fast")
     compare_batch("event_loop_fast", default_network())
@@ -561,10 +676,8 @@ def main() -> None:
     stamp("K1")
 
     err2 = compare_variants("event_loop_exact", (
-        ("int16", True, selfish_net), ("int32", True, selfish_net),
-        ("int16", False, selfish_net), ("int16", True, default_network(10_000)),
-        ("int32", False, default_network(10_000)),
-        ("auto", True, hetero_selfish),
+        ("int16", True, selfish_net), ("int16", False, selfish_net),
+        ("int32", False, default_network(10_000)), ("auto", True, hetero_selfish),
     ), "auto")
     compare_batch("event_loop_exact", selfish_net)
     scfg = SimConfig(network=selfish_net)
@@ -582,8 +695,7 @@ def main() -> None:
     # The flight-recorder variants (K3f, K3x) on the same kinds of variants,
     # each at a ring that wraps within the chunk and one that does not.
     err3f = max(compare_variants("event_loop_fast_flight", (
-        ("int16", True, default_network()), ("int32", True, default_network()),
-        ("int16", False, default_network()), ("auto", True, bursty),
+        ("int16", True, default_network()), ("auto", True, bursty),
     ), "fast", capacities=(64,)), compare_variants(
         "event_loop_fast_flight", (("auto", True, bursty),), "fast", capacities=(2048,)))
     compare_batch("event_loop_fast_flight", default_network(), capacity=1024)
@@ -596,7 +708,6 @@ def main() -> None:
     stamp("K3f")
 
     err3x = max(compare_variants("event_loop_exact_flight", (
-        ("int16", True, selfish_net), ("int32", True, selfish_net),
         ("int16", False, selfish_net), ("auto", True, hetero_selfish),
         ("auto", True, default_network(10_000)),
     ), "auto", capacities=(64,)), compare_variants(
@@ -636,23 +747,25 @@ def main() -> None:
         pe.run_durations = np.repeat([c.duration_ms for c in cfgs], counts)
         return pe
 
-    def compare_packed(kernel: str, variants, slots: int = 2, capacity: int = 0) -> int:
+    def compare_packed(kernel: str, variants, slots: int = 2, capacity: int = 0,
+                       knobs: dict | None = None) -> int:
         err = 0
         for kind, m, state_dtype, rebase in variants:
             cfgs = lane_configs(kind, m, duration_ms=CMP_DAYS * 86_400_000, state_dtype=state_dtype,
-                                count_rebase=rebase, group_slots=slots, flight_capacity=capacity)
+                                count_rebase=rebase, group_slots=slots, flight_capacity=capacity,
+                                **(knobs or {}))
             pe = packed_engine(cfgs, [300, 200, 250, 250])
             pkeys = pe.make_keys(0, RUNS_CMP)
             state, aux = pe._init(pkeys)
             state, aux, _ = pe._chunk(state, aux, tcap, pkeys, 0)
-            args = chunk_args(pe, pkeys, state, aux, 1, ragged_cap)
+            args, kw = chunk_args(pe, pkeys, state, aux, 1, ragged_cap), pe.loop_options()
             check(tuple(args[2].shape) == (m, RUNS_CMP)
                   and torch.is_tensor(args[5]) == (kind == "selfish"),
                   f"{kernel}: the {kind} pack's per-run operands")
             before = event_loop.launches[kernel]
-            got = event_loop.event_loop_chunk(*args)
+            got = event_loop.event_loop_chunk(*args, **kw)
             check(event_loop.launches[kernel] == before + 1, f"{kernel} did not launch")
-            err = max(err, max_abs_err(got, event_loop_chunk_plain(*args),
+            err = max(err, max_abs_err(got, event_loop_chunk_plain(*args, **kw),
                                        f"{kernel} chunk {kind} M = {m} K = {slots} "
                                        f"{state_dtype} rebase={rebase} capacity={capacity}"))
             if capacity == 64:
@@ -661,26 +774,27 @@ def main() -> None:
         print(f"[{kernel}] one chunk x {RUNS_CMP} runs ({CMP_DAYS} d configs), per-run delays "
               f"100 ms to 60 s: kernel == plain in {len(variants)} pack variants"
               + (f" at K = {slots} group slots" if slots != 2 else "")
-              + (f", ring capacity {capacity}" if capacity else ""))
+              + (f", ring capacity {capacity}" if capacity else "")
+              + (f", {knobs}" if knobs else ""))
         return err
 
     def compare_packed_batch(kernel: str, kind: str) -> None:
-        cfgs = lane_configs(kind, 9, duration_ms=30 * 86_400_000, runs=64, batch_size=64,
+        cfgs = lane_configs(kind, 9, duration_ms=10 * 86_400_000, runs=64, batch_size=64,
                             seed=7)
         pieces = [packed._Piece(i, 0, 64) for i in range(len(cfgs))]
         a = packed._dispatch(Engine(cfgs[0], dev, packed=True), cfgs, pieces, 256)
         b = packed._dispatch(Engine(cfgs[0], dev, packed=True,
                                     event_loop=event_loop_chunk_plain), cfgs, pieces, 256)
         equal_sums(a, b, f"{kernel} packed dispatch")
-        print(f"[{kernel}] packed dispatch of 4 points x 64 runs x 30 d: kernel == plain key "
+        print(f"[{kernel}] packed dispatch of 4 points x 64 runs x 10 d: kernel == plain key "
               f"for key ({int(a['tele_chunks_max'])} chunks)")
 
     err4f = compare_packed("event_loop_fast_packed", (
-        ("fast", 9, "auto", True), ("fast", 9, "int32", False), ("fast", 4, "auto", True)))
+        ("fast", 9, "int32", False), ("fast", 4, "auto", True)))
     compare_packed_batch("event_loop_fast_packed", "fast")
     err4x = compare_packed("event_loop_exact_packed", (
-        ("selfish", 9, "auto", True), ("selfish", 9, "int32", False), ("selfish", 4, "auto", True),
-        ("exact", 9, "auto", True), ("exact", 4, "int32", True)))
+        ("selfish", 9, "auto", True), ("selfish", 4, "int32", False),
+        ("exact", 4, "int32", True)))
     compare_packed_batch("event_loop_exact_packed", "selfish")
     # The main path's chunks: the first packed dispatch of the
     # selfish-hashrate sweep at 2,048 runs a point (4 points, K4x with
@@ -730,7 +844,8 @@ def main() -> None:
             ("event_loop_exact", (("int16", True, selfish_net), ("int32", False, selfish_net),
                                   ("int32", False, crowded)), "auto"),
         ):
-            err5[kernel, k] = compare_variants(kernel, variants, mode, slots=k)
+            err5[kernel, k] = compare_variants(kernel, variants[-1:] if k == 3 else variants,
+                                               mode, slots=k)
     # At K = 4 also with the ring, packed, and packed with the ring.
     err5["event_loop_exact", 4] = max(
         err5["event_loop_exact", 4],
@@ -750,7 +865,7 @@ def main() -> None:
                             f"{kernel} K = {k} {roster}")
             st["max_abs_err"] = max(st["max_abs_err"], err5[kernel, k])
             stats[f"{kernel}_k{k}_{roster}"] = st
-    card_equals_cpu("event_loop_exact", selfish_net, runs=256, slots=4)
+    card_equals_cpu("event_loop_exact", selfish_net, runs=64, slots=4)
     stamp("K5c")
 
     # Packed grids with the flight recorder (K4 x K3): the K4 lane groups,
@@ -809,8 +924,8 @@ def main() -> None:
                            [int(100 * 600 ** (i / 39)) for i in range(40)])
     err1w = max(
         compare_variants("event_loop_fast_wide", (
-            ("int16", True, r17), ("int32", True, r17), ("int16", True, r24),
-            ("int32", False, r24), ("int16", True, w1_net), ("int32", True, w1_net),
+            ("int32", True, r17), ("int16", True, r24), ("int16", True, w1_net),
+            ("int32", False, w1_net),
         ), "fast"),
         compare_variants("event_loop_fast_wide_flight", (("auto", True, w1_net),), "fast",
                          capacities=(1024,)),
@@ -818,8 +933,8 @@ def main() -> None:
         compare_variants("event_loop_fast_wide", (("auto", True, w1_net),), "fast", slots=4))
     err2w = max(
         compare_variants("event_loop_exact_wide", (
-            ("int16", True, hetero32.network), ("int32", False, hetero32.network),
-            ("auto", True, selfish20), ("int32", True, selfish20), ("auto", True, honest40),
+            ("int32", False, hetero32.network), ("auto", True, selfish20),
+            ("auto", True, honest40),
         ), "auto"),
         compare_variants("event_loop_exact_wide_flight", (
             ("auto", True, hetero32.network), ("auto", True, selfish20)), "auto",
@@ -840,8 +955,82 @@ def main() -> None:
     stats["event_loop_exact_wide"]["max_abs_err"] = max(
         err2w, stats["event_loop_exact_wide"]["max_abs_err"])
     card_equals_cpu("event_loop_fast_wide", w1_net)
-    card_equals_cpu("event_loop_exact_wide", hetero32.network)
+    card_equals_cpu("event_loop_exact_wide", hetero32.network, runs=16)
     stamp("K1w and K2w")
+
+    # The raw-word (K5a) and one-hot (K5b) variants. (a) The raw-word
+    # mapping alone on the card: every one of the 2^24 uniforms at the four
+    # means equals sampling.interval_from_bits, and the words at each
+    # threshold, one below and one above, 0 and 2^32 - 1 give the winner
+    # that winners_from_bits gives.
+    thr = eng.params.thresholds
+    uniforms = torch.arange(2**24, dtype=torch.int64, device=dev) << 8
+    both_words = threefry.to_int32(torch.stack([uniforms, uniforms]))
+    for mean in (600_000.0, 60_000.0, 1_000.0, 3_600_000.0):
+        mapped = map_raw_words(both_words, make_sampler(thr, mean))
+        mis = int((mapped[1] != interval_from_bits(uniforms, mean)).sum())
+        record[f"raw_map_mismatches_{int(mean)}ms"] = mis
+        check(mis == 0, f"raw-word mapping at mean {mean} ms: {mis} of 2^24 differ")
+    edge = torch.cat([thr - 1, thr, thr + 1, torch.tensor([0, 2**32 - 1], device=dev)])
+    mapped = map_raw_words(threefry.to_int32(torch.stack([edge, edge])), make_sampler(thr, 6e5))
+    check(torch.equal(mapped[0], winners_from_bits(edge, thr)),
+          "raw-word mapping: an edge word's winner differs from winners_from_bits")
+    print(f"[event_loop raw words] the device mapping == sampling's over all 2^24 uniforms at "
+          f"600 s, 60 s, 1 s and 3,600 s; {edge.numel()} edge words' winners equal")
+    del uniforms, both_words, mapped
+    # (b) Each variant's chunk against its plain version: the main path's
+    # shape for each knob in each mode (the default roster, fast; the
+    # selfish roster, exact), timed and counted; then at RUNS_CMP runs with
+    # the ring, packed (per-run thresholds and means at M = 4), exact at
+    # K = 4, wide at 32 miners, and both knobs together.
+    raw, onehot = dict(rng_batch=False), dict(consensus_gather=False)
+    both = dict(rng_batch=False, consensus_gather=False)
+    for knobs, tag in ((raw, "raw"), (onehot, "onehot")):
+        for mode, base, roster in (("fast", cfg, "default"), ("exact", scfg, "selfish")):
+            name = f"event_loop_{mode}_{tag}"
+            stats[name] = main_chunk(name, Engine(dataclasses.replace(base, **knobs), dev),
+                                     f"{name} {roster}")
+    racy = default_network(10_000)
+    for knobs, tag in ((raw, "raw"), (onehot, "onehot"), (both, "raw_onehot")):
+        err5ab = max(
+            compare_variants(f"event_loop_fast_{tag}", (
+                ("int32", False, racy), ("int16", True, default_network()))[:2 - (tag != "raw")],
+                "fast", knobs=knobs),
+            compare_variants(f"event_loop_exact_{tag}", (
+                ("int16", True, selfish_net), ("auto", True, racy),
+                ("int32", False, selfish_net))[:3 - (tag != "raw") - (tag == "raw_onehot")],
+                "auto", knobs=knobs),
+            compare_variants(f"event_loop_exact_{tag}_flight", (("auto", True, selfish_net),),
+                             "auto", capacities=(64,), knobs=knobs))
+        if tag != "raw_onehot":
+            err5ab = max(
+                err5ab,
+                compare_variants(f"event_loop_fast_{tag}_flight", (("auto", True, racy),), "fast",
+                                 capacities=(64,), knobs=knobs),
+                compare_packed(f"event_loop_fast_{tag}_packed", (("fast", 9, "auto", True),),
+                               knobs=knobs),
+                compare_packed(f"event_loop_exact_{tag}_packed", (("selfish", 9, "auto", True),),
+                               knobs=knobs),
+                compare_variants(f"event_loop_exact_{tag}", (("auto", True, selfish_net),),
+                                 "auto", slots=4, knobs=knobs),
+                compare_variants(f"event_loop_fast_wide_{tag}", (("auto", True, w1_net),), "fast",
+                                 knobs=knobs),
+                compare_variants(f"event_loop_exact_wide_{tag}", (
+                    ("auto", True, hetero32.network),), "auto", knobs=knobs))
+            for mode in ("fast", "exact"):
+                st = stats[f"event_loop_{mode}_{tag}"]
+                st["max_abs_err"] = max(st["max_abs_err"], err5ab)
+        if tag == "raw":
+            # Per-run thresholds and means: the 4-miner lane groups alternate
+            # 600 s and 300 s intervals.
+            err5ab = max(err5ab, compare_packed("event_loop_fast_raw_packed", (
+                ("fast", 4, "auto", True),), knobs=knobs), compare_packed(
+                "event_loop_exact_raw_packed", (("selfish", 4, "int32", True),), knobs=knobs))
+            for mode in ("fast", "exact"):
+                st = stats[f"event_loop_{mode}_raw"]
+                st["max_abs_err"] = max(st["max_abs_err"], err5ab)
+        record[f"K5_{tag}_max_abs_err"] = err5ab
+    stamp("K5a and K5b")
 
     # -- 5. main paths -------------------------------------------------------
     def main_path(kernel: str, run_cfg, label: str):
@@ -1205,6 +1394,130 @@ def main() -> None:
           f"({w2_stale} stale), {event_loop.launches['event_loop_exact_wide_flight']} K2w "
           f"flight launches; on {card}")
     stamp("wide paths")
+
+    # -- 9. the legacy knobs' paths (K5a, K5b) -------------------------------
+    # Paths 1-3: the selfish and the default roster at 8,192 runs x one year
+    # through `python -m tpusim_torch --config` (cli.main), with rng_batch
+    # off (K5a), consensus_gather off (K5b), and the reference's LEGACY
+    # configuration with the raw words (both off, un-rebased int32 counts).
+    # Each run launches its variant once a chunk and no other kernel, and
+    # its output JSON equals the same seed's run with the knobs on.
+    legacy = dict(both, count_rebase=False, state_dtype="int32")
+    wall_keys = ("elapsed_s", "compile_s")
+
+    def cli_path(run_cfg, label: str, kernel: str) -> tuple[dict, int]:
+        cfg_path, json_path = OUT / f"{label}.json", OUT / f"{label}_results.json"
+        cfg_path.write_text(run_cfg.to_json())
+        for k in event_loop.launches:
+            event_loop.launches[k] = 0
+        chunk_log.clear()
+        Engine.run_batch = logged_run_batch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["--config", str(cfg_path), "--device", "cuda", "--quiet",
+                               "--json", str(json_path)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            Engine.run_batch = real_run_batch
+        check(rc == 0, f"{label}: exit {rc}")
+        launches = dict(event_loop.launches)
+        launched_once_per_chunk(launches, label, {kernel: run_cfg.resolved_mode == "exact"})
+        out = {k: v for k, v in json.loads(json_path.read_text()).items() if k not in wall_keys}
+        years = run_cfg.runs * run_cfg.duration_ms / (365.2425 * 86_400_000)
+        print(f"[legacy {label}] {run_cfg.runs} runs x 1 year through the CLI in {wall:.2f} s = "
+              f"{years / wall:.1f} run-years/s; {launches[kernel]} {kernel} launches = "
+              f"{sum(c for _, c in chunk_log)} chunks, no other kernel; on {card}")
+        record[f"legacy_{label}"] = dict(wall_s=wall, run_years_per_s=years / wall,
+                                         launches=launches[kernel])
+        return out, launches[kernel]
+
+    legacy_launches = {}
+    for mode, base, roster in (("exact", scfg, "selfish"), ("fast", cfg, "default")):
+        base = dataclasses.replace(base, runs=8192, batch_size=8192)
+        want, _ = cli_path(base, f"{roster}_knobs_on", f"event_loop_{mode}")
+        for knobs, tag in ((raw, "raw"), (onehot, "onehot"), (legacy, "raw_onehot")):
+            name = f"event_loop_{mode}_{tag}"
+            got, legacy_launches[name] = cli_path(dataclasses.replace(base, **knobs),
+                                                  f"{roster}_{tag}", name)
+            check(got == want, f"{roster} roster, {knobs}: the output JSON differs from the "
+                               f"knobs-on run's")
+        if roster == "selfish":
+            share = want["miners"][0]["blocks_share_mean"]
+            check(abs(share - 0.4668) < 0.01, f"selfish share {share}")
+            print(f"[legacy selfish] every knob set's output == the knobs-on run's; selfish "
+                  f"miner 0's share {share * 100:.2f} % (README 46.68 %); on {card}")
+    # Path 4: a packed propagation grid of three points (a fast pack of two,
+    # an exact one) with rng_batch off, against the same grid with it on;
+    # then the trace command on the selfish roster with both knobs off,
+    # whose JSONL must be byte-identical to the knobs-on trace's above.
+    prop3 = grids["propagation"]()[:3]
+    Engine.run_batch = logged_run_batch
+    try:
+        on_rows, _ = sweep_path(prop3, True, "propagation 3 points packed")
+        off_rows, off_launches = sweep_path(
+            [(n, dataclasses.replace(c, **raw)) for n, c in prop3], True,
+            "propagation 3 points packed rng_batch off")
+        launched_once_per_chunk(off_launches, "packed rng_batch off", {
+            "event_loop_fast_raw_packed": False, "event_loop_exact_raw_packed": True})
+    finally:
+        Engine.run_batch = real_run_batch
+    check(strip(off_rows) == strip(on_rows), "packed grid: rng_batch off rows differ")
+    trace_cfg = dataclasses.replace(cli.config_from_args(cli.build_parser().parse_args(
+        trace_flags)), flight_capacity=1024, **both)
+    (OUT / "trace_knobs_off.json").write_text(trace_cfg.to_json())
+    for k in event_loop.launches:
+        event_loop.launches[k] = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = flight_export.main(["--config", str(OUT / "trace_knobs_off.json"), "--device",
+                                 "cuda", "--events-out", str(OUT / "trace_events_off.jsonl"),
+                                 "--trace-out", str(OUT / "trace_off.json")])
+    off_trace = {k: v for k, v in event_loop.launches.items() if v}
+    check(rc == 0 and list(off_trace) == ["event_loop_exact_raw_onehot_flight"],
+          f"knobs-off trace: exit {rc}, launches {off_trace}")
+    check((OUT / "trace_events_off.jsonl").read_bytes() == events_out.read_bytes(),
+          "knobs-off trace: the JSONL differs from the knobs-on trace's")
+    off_launches = {k: v for k, v in off_launches.items() if v}
+    print(f"[legacy path 4] packed propagation grid (3 points x 2048 runs) with rng_batch off: "
+          f"rows == the knobs-on rows, launches {off_launches}; trace with both knobs off: "
+          f"{off_trace}, JSONL byte-identical to the knobs-on trace's; on {card}")
+    stamp("legacy paths")
+
+    # -- 10. layout micro-benchmarks (S1) ------------------------------------
+    # `python -m tpusim_torch.micro` at R = 8,192 lanes and N = 512
+    # iterations (micro.main), the launch counts set to 0 just before and read
+    # just after; then each op's kernel against its plain version on the same
+    # inputs, the plain version timed.
+    micro_r, micro_n = 8192, 512
+    for k in micro.launches:
+        micro.launches[k] = 0
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = micro.main(["--r", str(micro_r), "--iters", str(micro_n)])
+    check(rc == 0, f"tpusim_torch.micro exited {rc}")
+    micro_rows = [json.loads(line) for line in captured.getvalue().splitlines()]
+    micro_launches = dict(micro.launches)
+    for op, row in zip(micro.OPS, micro_rows[1:]):
+        ins = micro.make_inputs(op, micro_r, dev)
+        got = micro.run(op, ins, micro_n)
+        want, plain_ms = timed_once(torch, lambda: micro.run_plain(op, ins, micro_n))
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"S1 {op}: kernel differs from its plain version by {err}")
+        ops = micro_ops(op, micro_r, micro_n)
+        nbytes = sum(x.numel() * 4 for x in ins) + got.numel() * 4
+        bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                 (ops / INT32_OPS_PER_S * 1e3, "operations"))
+        ms = row["us_per_iter"] * micro_n / 1e3
+        stats[f"micro_{op}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, row=row)
+        print(f"[S1 {op}] R = {micro_r}, N = {micro_n}: kernel == plain; {row['us_per_iter']:.3f} "
+              f"us/iter ({ms:.3f} ms a launch), N/8 scaling ratio {row['scaling_ratio_8x']:.2f}"
+              f"{' (floor-limited)' if row['floor_limited'] else ''}; plain {plain_ms:.1f} ms; "
+              f"bound {bound_ms:.4f} ms by {bound_by}; {micro_launches[op]} launches by the "
+              f"command; on {card}")
+    stamp("S1")
     record["smoke_s"] = time.perf_counter() - t_all
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=2))
 
@@ -1232,6 +1545,16 @@ def main() -> None:
          "tpusim/pallas_engine.py:150", launches_w1),
         ("event_loop_exact_wide", "tpusim_torch/csrc/event_loop_exact.cu",
          "tpusim/engine.py:335", w2_seq_launches["event_loop_exact_wide"]),
+        ("event_loop_fast_raw", "tpusim_torch/csrc/event_loop.cu",
+         "tpusim/pallas_engine.py:293", legacy_launches["event_loop_fast_raw"]),
+        ("event_loop_exact_raw", "tpusim_torch/csrc/event_loop_exact.cu",
+         "tpusim/pallas_engine.py:293", legacy_launches["event_loop_exact_raw"]),
+        ("event_loop_fast_onehot", "tpusim_torch/csrc/event_loop.cu",
+         "tpusim/pallas_engine.py:442", legacy_launches["event_loop_fast_onehot"]),
+        ("event_loop_exact_onehot", "tpusim_torch/csrc/event_loop_exact.cu",
+         "tpusim/pallas_engine.py:442", legacy_launches["event_loop_exact_onehot"]),
+        *((f"micro_{op}", "tpusim_torch/csrc/micro.cu", "scripts/mosaic_micro.py:110",
+           micro_launches[op]) for op in micro.OPS),
     ):
         st = stats[name]
         kernels.append({

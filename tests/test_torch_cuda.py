@@ -10,6 +10,8 @@ the suite's conftest, which configures JAX:
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -296,11 +298,12 @@ def _compare_chunk(eng, keys, state, aux, cap, kernel: str) -> tuple:
     prop, selfish = eng.roster()
     args = (eng._rows(keys, 1), cap, prop, state_to_kernel(state), counters_to_kernel(ctr),
             selfish, None if fr is None else flight_to_kernel(fr))
+    kw = eng.loop_options()
     before = dict(event_loop.launches)
-    got = event_loop.event_loop_chunk(*args)
+    got = event_loop.event_loop_chunk(*args, **kw)
     torch.cuda.synchronize()
     assert event_loop.launches == {**before, kernel: before[kernel] + 1}
-    want = event_loop_chunk_plain(*args)
+    want = event_loop_chunk_plain(*args, **kw)
     names = event_loop.EXACT_LEAVES if eng.exact else event_loop.FAST_LEAVES
     names += event_loop.TELE_LEAVES + (FLIGHT_LEAVES if fr is not None else ())
     for name, g, w in zip(names, got[0] + got[1] + (got[2] or ()),
@@ -470,3 +473,171 @@ def test_hetero32_run_batch_card_equals_cpu(cuda):
     assert x.keys() == y.keys()
     for key in x:
         np.testing.assert_array_equal(x[key], y[key], err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# The raw-word (K5a) and one-hot (K5b) variants, the layout micro-benchmarks
+# (S1), and the SASS of the libraries that predate them.
+
+KNOBS = {"raw": dict(rng_batch=False), "onehot": dict(consensus_gather=False),
+         "raw_onehot": dict(rng_batch=False, consensus_gather=False)}
+KNOB_CASES = {
+    "fast": (default_network(), "fast", 2, 0),
+    "fast-ring": (BURSTY, "fast", 2, 64),
+    "fast-k4": (default_network(10_000), "fast", 4, 0),
+    "selfish": (reference_selfish_network(), "auto", 2, 0),
+    "selfish-ring": (reference_selfish_network(), "auto", 2, 64),
+    "selfish-k4": (reference_selfish_network(), "auto", 4, 0),
+    "hetero-selfish": (hetero_selfish_network(), "auto", 2, 0),
+    "w1": (W1, "fast", 2, 0),
+    "hetero32": ("hetero32", "auto", 2, 0),
+}
+
+
+def _knob_kernel(network: NetworkConfig, exact: bool, knobs: str, capacity: int,
+                 packed_run: bool = False) -> str:
+    return (("event_loop_exact" if exact else "event_loop_fast")
+            + ("_wide" if network.n_miners > event_loop.NARROW_MAX_MINERS else "")
+            + f"_{knobs}" + ("_packed" if packed_run else "") + ("_flight" if capacity else ""))
+
+
+@pytest.fixture(scope="module")
+def knob_libraries():
+    """Every library the knob tests below launch, built at once (one nvcc
+    each, in parallel) rather than one at a time at first use."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from tpusim_torch.csrc import build
+
+    libs = {(build.MICRO, 0, 0)}
+    for knobs in KNOBS:
+        for network, mode, k, capacity in KNOB_CASES.values():
+            network = _hetero32() if network == "hetero32" else network
+            exact = SimConfig(network=network, mode=mode).resolved_mode == "exact"
+            libs.add((_knob_kernel(network, exact, knobs, capacity), network.n_miners, k))
+        for exact in (False, True):
+            libs.add((_knob_kernel(default_network(), exact, knobs, 0, True), 9, 2))
+    build.build(sorted(libs))
+
+
+@pytest.mark.parametrize("knobs", list(KNOBS))
+@pytest.mark.parametrize("case", list(KNOB_CASES))
+def test_knob_kernel_chunk_equals_plain(cuda, knob_libraries, knobs, case):
+    """K5a, K5b and both, in each mode, with the ring, at K = 4 and wide,
+    from a mid-run state with ragged chunk ends, at 512 runs."""
+    network, mode, k, capacity = KNOB_CASES[case]
+    network = _hetero32() if network == "hetero32" else network
+    cfg = SimConfig(network=network, duration_ms=2 * DAY, mode=mode, group_slots=k,
+                    flight_capacity=capacity, **KNOBS[knobs])
+    eng, keys, state, aux, cap = _mid_run(cfg, 512, 1)
+    _compare_chunk(eng, keys, state, aux, _ragged(cap),
+                   _knob_kernel(network, eng.exact, knobs, capacity))
+
+
+@pytest.mark.parametrize("knobs", list(KNOBS))
+@pytest.mark.parametrize("kind", ["fast", "selfish"])
+def test_knob_packed_kernel_chunk_equals_plain(cuda, knob_libraries, knobs, kind):
+    """The packed raw-word and one-hot variants: per-run thresholds and
+    means (one lane group at a 300 s interval), delays and flags."""
+    cfgs = _lane_configs(kind, duration_ms=2 * DAY, **KNOBS[knobs])
+    cfgs[1] = dataclasses.replace(
+        cfgs[1], network=dataclasses.replace(cfgs[1].network, block_interval_s=300.0))
+    eng = _packed_engine(cfgs, [300, 200, 250, 250], event_loop=event_loop_chunk_plain)
+    keys = eng.make_keys(0, 1000)
+    state, aux = eng._init(keys)
+    cap = torch.full((1000,), 2**29, dtype=torch.int32, device="cuda")
+    state, aux, _ = eng._chunk(state, aux, cap, keys, 0)
+    _compare_chunk(eng, keys, state, aux, _ragged(cap),
+                   _knob_kernel(default_network(), kind != "fast", knobs, 0, True))
+
+
+@pytest.mark.parametrize("knobs", ["raw", "onehot"])
+def test_knob_run_batch_card_equals_cpu(cuda, knob_libraries, knobs):
+    cfg = SimConfig(network=reference_selfish_network(), duration_ms=2 * DAY, runs=64,
+                    batch_size=64, seed=3, **KNOBS[knobs])
+    a, b = Engine(cfg, "cuda"), Engine(cfg, "cpu")
+    x, y = a.run_batch(a.make_keys(0, 64)), b.run_batch(b.make_keys(0, 64))
+    assert x.keys() == y.keys()
+    for key in x:
+        np.testing.assert_array_equal(x[key], y[key], err_msg=key)
+
+
+def test_raw_word_mapping_over_all_uniforms(cuda, knob_libraries):
+    """K5a's device mapping: all 2^24 uniforms at four means, and the
+    thresholds' edge words, as ``sampling`` maps them."""
+    from tpusim_torch.sampling import interval_from_bits, winners_from_bits
+    from tpusim_torch.state import make_params
+
+    thr = make_params(SimConfig(network=default_network()), "cuda").thresholds
+    words = torch.arange(2**24, dtype=torch.int64, device="cuda") << 8
+    both = threefry.to_int32(torch.stack([words, words]))
+    for mean in (600_000.0, 60_000.0, 1_000.0, 3_600_000.0):
+        got = event_loop.map_raw_words(both, event_loop.make_sampler(thr, mean))
+        assert torch.equal(got[1], interval_from_bits(words, mean)), mean
+        assert torch.equal(got[0], winners_from_bits(words, thr)), mean
+    edge = torch.cat([thr - 1, thr, thr + 1, torch.tensor([0, 2**32 - 1], device="cuda")])
+    got = event_loop.map_raw_words(threefry.to_int32(torch.stack([edge, edge])),
+                                   event_loop.make_sampler(thr, 600_000.0))
+    assert torch.equal(got[0], winners_from_bits(edge, thr))
+
+
+@pytest.mark.parametrize("op", ["sel3", "sel_flat", "reshape", "repeat", "tile", "segsum",
+                                "contract"])
+def test_micro_kernel_equals_plain(cuda, knob_libraries, op):
+    from tpusim_torch import micro
+
+    inputs = micro.make_inputs(op, 1000, "cuda")
+    before = micro.launches[op]
+    got = micro.run(op, inputs, 64)
+    torch.cuda.synchronize()
+    assert micro.launches[op] == before + 1
+    assert torch.equal(got, micro.run_plain(op, inputs, 64))
+
+
+#: Digests of the SASS (``cuobjdump -sass``, addresses, encodings and the
+#: path-derived hash in anonymous-namespace names stripped) of the
+#: libraries that predate the raw-word and one-hot variants, as the sources
+#: before them compiled, for one nvcc release.
+SASS_PIN = Path(__file__).with_name("torch_sass_digests.json")
+
+
+def _sass_digest(path) -> str:
+    import hashlib
+    import re
+    import subprocess
+
+    from tpusim_torch.csrc import build
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    lines = []
+    for line in text.splitlines():
+        line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)
+        line = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line)
+        line = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", line).strip()
+        if line:
+            lines.append(line)
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+def test_existing_libraries_keep_their_sass(cuda):
+    """The 39 libraries of the variants that predate K5a and K5b compile to
+    the instructions they compiled to before those variants were added."""
+    import subprocess
+
+    from tpusim_torch.csrc import build
+
+    pin = json.loads(SASS_PIN.read_text())
+    release = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[-1]
+    if release != pin["nvcc"]:
+        pytest.skip(f"SASS pinned for {pin['nvcc']}, this is {release}")
+    libs = {}
+    for key in pin["digests"]:
+        name, m, k = key.rsplit("-", 2)
+        libs[name, int(m[1:]), int(k[1:])] = key
+    built = build.build(libs)
+    changed = [key for lib, key in libs.items()
+               if _sass_digest(built[lib][0]) != pin["digests"][key]]
+    assert not changed, f"SASS changed: {changed}"

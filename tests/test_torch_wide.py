@@ -298,7 +298,8 @@ def test_wide_rosters_select_the_wide_libraries():
 
     assert event_loop.NARROW_MAX_MINERS == build.NARROW_MAX_MINERS == 16
     wide = [n for n in build.SOURCES if "_wide" in n]
-    assert len(wide) == 8 and set(wide) <= set(event_loop.launches)
+    # Eight variants, each also raw-word, one-hot and both (K5a, K5b).
+    assert len(wide) == 32 and set(wide) <= set(event_loop.launches)
     for name in wide:
         assert "-DTPUSIM_WIDE=1" in build._flags(name, 32, 2)
         assert "-DTPUSIM_WIDE=1" not in build._flags(name.replace("_wide", ""), 9, 2)

@@ -12,11 +12,20 @@ the packed grid with the recorder with both, and K >= 3 adds
 library of its own, so they compile in parallel with the others. The wide
 variants (``*_wide*``, for rosters of more than 16 miners) are each of
 these built with ``-DTPUSIM_WIDE=1``, for any M; the others take 1..16
-miners. A library is named after its kernel, M, K and a hash of its
-source, the shared headers (``*.cuh``) and the flags, so an edited source
-is never served by a stale build. The builds run at first use, into ``tpusim_torch/csrc/build/``
-(ignored by git); :func:`build` starts one ``nvcc`` per library asked for,
-all at once.
+miners. Each of these again has a raw-word form (``*_raw*``,
+``-DTPUSIM_RAW_WORDS=1``, K5a: the kernel maps the raw threefry words
+itself and takes the thresholds and the mean), a one-hot form
+(``*_onehot*``, ``-DTPUSIM_ONEHOT=1``, K5b: b-indexed reads as one-hot
+contractions) and both; a library without these flags is built with the
+same ``nvcc`` command as before they existed. A library is named after its
+kernel, M, K and a hash of its source, the shared headers (``*.cuh``) and
+the flags, so an edited source is never served by a stale build. The
+builds run at first use, into ``tpusim_torch/csrc/build/`` (ignored by
+git); :func:`build` starts one ``nvcc`` per library asked for, all at
+once.
+
+The layout micro-benchmarks (S1, ``micro.cu``) are one library of their
+own, ``MICRO``, with no miner or slot count (:func:`load_micro`).
 
 Run ``python -m tpusim_torch.csrc.build [M ...]`` (default M = 9) to build
 the K = 2 libraries ahead of time (the wide ones for M > 16) and print the
@@ -29,6 +38,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -36,21 +46,26 @@ import time
 from pathlib import Path
 
 __all__ = [
-    "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "NARROW_MAX_MINERS", "build", "entry_point",
-    "load_library",
+    "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "NARROW_MAX_MINERS", "MAP_ENTRY", "MICRO", "build",
+    "entry_point", "load_library", "load_micro",
 ]
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "build"
 #: Kernel name -> its source: each mode's kernel, then with ``_wide`` its
-#: wide variant, then with ``_packed`` and ``_flight`` its packed-grid and
+#: wide variant, with ``_raw`` and ``_onehot`` its raw-word and one-hot
+#: variants, then with ``_packed`` and ``_flight`` its packed-grid and
 #: flight-recorder variants.
 SOURCES = {
-    f"event_loop_{mode}{wide}{variant}": CSRC / src
+    f"event_loop_{mode}{wide}{knobs}{variant}": CSRC / src
     for mode, src in (("fast", "event_loop.cu"), ("exact", "event_loop_exact.cu"))
     for wide in ("", "_wide")
+    for knobs in ("", "_raw", "_onehot", "_raw_onehot")
     for variant in ("", "_flight", "_packed", "_packed_flight")
 }
+#: The layout micro-benchmarks' library (S1): ``(MICRO, 0, 0)`` in :func:`build`.
+MICRO = "micro"
+_MICRO_SOURCE = CSRC / "micro.cu"
 #: Narrow kernels hold a run's state in registers, up to this many miners.
 NARROW_MAX_MINERS = 16
 NVCC_FLAGS = (
@@ -89,6 +104,18 @@ _ENTRY.update({
     (entry, [_vp if a is ctypes.c_uint else a for a in args])
     for name, (entry, args) in list(_ENTRY.items())
 })
+# The raw-word and one-hot variants: the same entry points; a raw-word one
+# takes the thresholds' and the mean's addresses (lo, hi, mean) before the
+# stream.
+_ENTRY.update({
+    re.sub(r"^(event_loop_(fast|exact)(_wide)?)", rf"\1{knobs}", name):
+    (entry, args[:-1] + [_vp] * (3 if "_raw" in knobs else 0) + args[-1:])
+    for name, (entry, args) in list(_ENTRY.items())
+    for knobs in ("_raw", "_onehot", "_raw_onehot")
+})
+#: The raw-word libraries' mapping alone (K5a's device functions), its C
+#: entry point and argument types: words, lo, hi, mean, n, out, stream.
+MAP_ENTRY = ("tpusim_map_raw_words", [_vp, _vp, _vp, _vp, _i, _vp, _vp])
 
 
 def nvcc() -> str:
@@ -104,15 +131,27 @@ def nvcc() -> str:
 
 
 def _flags(name: str, miners: int, slots: int) -> tuple[str, ...]:
+    if name == MICRO:
+        return NVCC_FLAGS
     packed = ("-DTPUSIM_PACKED=1",) if "_packed" in name else ()
     group = (f"-DTPUSIM_GROUP_SLOTS={slots}",) if slots != 2 else ()
     wide = ("-DTPUSIM_WIDE=1",) if "_wide" in name else ()
+    raw = ("-DTPUSIM_RAW_WORDS=1",) if "_raw" in name else ()
+    onehot = ("-DTPUSIM_ONEHOT=1",) if "_onehot" in name else ()
     return (*NVCC_FLAGS, f"-DTPUSIM_MINERS={miners}",
-            f"-DTPUSIM_FLIGHT={int(name.endswith('_flight'))}", *packed, *group, *wide)
+            f"-DTPUSIM_FLIGHT={int(name.endswith('_flight'))}", *packed, *group, *wide, *raw,
+            *onehot)
+
+
+def _source(name: str) -> Path:
+    return _MICRO_SOURCE if name == MICRO else SOURCES[name]
 
 
 def _target(name: str, miners: int, slots: int) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    digest = hashlib.sha256(_source(name).read_bytes())
+    if name == MICRO:
+        digest.update(" ".join(_flags(name, miners, slots)).encode())
+        return BUILD_DIR / f"lib{MICRO}-{digest.hexdigest()[:16]}.so"
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(_flags(name, miners, slots)).encode())
@@ -128,6 +167,8 @@ def build(libs) -> dict[tuple[str, int, int], tuple[Path, float, str]]:
     output if a build fails."""
     libs = list(libs)
     for name, miners, slots in libs:
+        if name == MICRO and (miners, slots) == (0, 0):
+            continue
         too_wide = "_wide" not in name and miners > NARROW_MAX_MINERS
         if name not in SOURCES or miners < 1 or too_wide or slots < 2:
             raise ValueError(f"no kernel library {name!r} for {miners} miners and "
@@ -142,14 +183,14 @@ def build(libs) -> dict[tuple[str, int, int], tuple[Path, float, str]]:
         for lib in todo:
             tmp = _target(*lib).with_suffix(f".{os.getpid()}.tmp")
             procs[lib] = (tmp, subprocess.Popen(
-                [compiler, *_flags(*lib), "-o", str(tmp), str(SOURCES[lib[0]])],
+                [compiler, *_flags(*lib), "-o", str(tmp), str(_source(lib[0]))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
         failed = []
         for lib, (tmp, proc) in procs.items():
             log = proc.communicate()[0]
             if proc.returncode != 0:
-                failed.append(f"{lib[0]} ({SOURCES[lib[0]].name}, M = {lib[1]}, K = {lib[2]}): "
+                failed.append(f"{lib[0]} ({_source(lib[0]).name}, M = {lib[1]}, K = {lib[2]}): "
                               f"nvcc exited {proc.returncode}\n{log}")
                 continue
             os.replace(tmp, _target(*lib))  # atomic: a concurrent loader sees all or nothing
@@ -173,6 +214,22 @@ def load_library(name: str, miners: int, slots: int) -> ctypes.CDLL:
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
     fn.restype = _i
+    if "_raw" in name:
+        fn = getattr(lib, MAP_ENTRY[0])
+        fn.argtypes = MAP_ENTRY[1]
+        fn.restype = _i
+    lib.tpusim_cuda_error_string.argtypes = [_i]
+    lib.tpusim_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_micro() -> ctypes.CDLL:
+    """The layout micro-benchmarks' library (``micro.cu``), built on first
+    use: ``tpusim_micro_launch(op, ins, out, iters, runs, stream)``."""
+    lib = ctypes.CDLL(str(build([(MICRO, 0, 0)])[MICRO, 0, 0][0]))
+    lib.tpusim_micro_launch.argtypes = [_i, _pp, _vp, _i, _i, _vp]
+    lib.tpusim_micro_launch.restype = _i
     lib.tpusim_cuda_error_string.argtypes = [_i]
     lib.tpusim_cuda_error_string.restype = ctypes.c_char_p
     return lib

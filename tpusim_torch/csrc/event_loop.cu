@@ -123,6 +123,29 @@
 // (about 5 KB a run at M = 32 with int16 counts, 40 MB at R = 8192), so in
 // practice the latency of its dependent accesses, with 2 warps per SM at
 // R = 8192, sets the time.
+//
+// Raw words (TPUSIM_RAW_WORDS, K5a). Replaces the same Pallas kernel with
+// rng_batch=False (tpusim/pallas_engine.py:293-309), in every variant above:
+// a step's row holds its two raw threefry words (int32 bit patterns), and on
+// a step where a block is found the thread maps them itself (draw_raw in
+// event_loop_common.cuh): the winner by the uint32 threshold intervals, the
+// interval by the F1 transcription of XLA:CPU's log1p, every float operation
+// an explicitly rounded intrinsic so that nvcc contracts none but the 24
+// multiply-adds XLA contracts. The thresholds and the mean are a Sampler,
+// the kernel's last parameter (per run when PACKED). What bounds it: K1's
+// operations plus, per find, 87 float32 operations and 4 M + 5 int32 ones;
+// K1's bytes with the raw words in place of the mapped rows, the same size.
+// The other variants' text is unchanged: every raw-word statement sits under
+// `#if TPUSIM_RAW_WORDS`.
+//
+// One-hot reads (TPUSIM_ONEHOT, K5b). Replaces the same Pallas kernel with
+// consensus_gather=False (tpusim/pallas_engine.py:442-449, 459-461): each read
+// indexed by the best chain's owner b (height, own_cnt, own_cp's column b,
+// own_in's row b) is the contraction sum_m v[m] * [m == b] over the miner
+// axis, in registers (contract_b), or in the wide variants over M loads of
+// the run's column (contract_col). Only one term is nonzero, so the values
+// are the gather's. What bounds it: K1's operations plus 2 M (2 M + 2) for
+// the contractions of each adopting event.
 
 #include "event_loop_common.cuh"
 
@@ -140,7 +163,7 @@ template <int M, typename C, typename S, bool FLIGHT, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
                   const int* __restrict__ prop_in, Leaves in, Leaves out,
-                  int steps, int n_runs, Flight fl) {
+                  int steps, int n_runs, Flight fl TPUSIM_SAMPLER_PARAM) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_runs) return;
   const long R = n_runs;
@@ -183,8 +206,13 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
     // of the chunk (t moves only while t < cap): stopping is exact.
     if (!(t < cap)) break;
     const bool found_due = (t == nbt);
+#if TPUSIM_RAW_WORDS
+    int wq = 0, dt = 0;
+    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
+#else
     const int wq = rows[(2L * s) * R + r];
     const int dt = rows[(2L * s + 1) * R + r];
+#endif
     int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
     if (FLIGHT) {
 #pragma unroll 4
@@ -251,14 +279,23 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
     if (any_adopt) {
       // b never adopts (its published height is the best); its published
       // own count is the diagonal correction of b's rows.
+#if TPUSIM_ONEHOT
+      const int bpub = contract_col(ocnt, 0, 1, b, M) - (contract_col(height, 0, 1, b, M) - best_h);
+#else
       const long bM = static_cast<long>(b) * M;
       const int bpub = ocnt(b) - (height(b) - best_h);
+#endif
       // The adopters, and their reorg stale accounting: own blocks above
       // lca(i, b).
       stale_pass(M, best_h, b, height, ocnt, ocp, stale, sbm, adopt, dmax, miner2, d2);
       // b's published count row (own_in's row b, diagonal corrected).
+#if TPUSIM_ONEHOT
+      batched(M, [&](long o) { return o == b ? bpub : contract_col(oin, o, M, b, M); },
+              [&](long o, int v) { row_bpub[o] = v; });
+#else
       batched(M, [&](long o) { return o == b ? bpub : oin(bM + o); },
               [&](long o, int v) { row_bpub[o] = v; });
+#endif
       // Adopters' rows take b's published view; the other rows' columns
       // toward the adopters take their own_cp with b (fast mode).
 #pragma unroll 1
@@ -272,7 +309,11 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
           });
           ocnt.set(i, rb_i);
         } else {
+#if TPUSIM_ONEHOT
+          const int col = (i == b) ? bpub : contract_col(ocp, iM, 1, b, M);
+#else
           const int col = (i == b) ? bpub : ocp(iM + b);
+#endif
           batched(M, [&](long j) { return adopt[j]; }, [&](long j, int aj) {
             if (aj) ocp.set(iM + j, col);
           });
@@ -335,7 +376,7 @@ template <int M, typename C, typename S, bool FLIGHT, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
                   const int* __restrict__ prop_in, Leaves in, Leaves out,
-                  int steps, int n_runs, Flight fl) {
+                  int steps, int n_runs, Flight fl TPUSIM_SAMPLER_PARAM) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_runs) return;
   const long R = n_runs;
@@ -387,8 +428,13 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
     // of the chunk (t moves only while t < cap): stopping is exact.
     if (!(t < cap)) break;
     const bool found_due = (t == nbt);
+#if TPUSIM_RAW_WORDS
+    int wq = 0, dt = 0;
+    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
+#else
     const int wq = rows[(2L * s) * R + r];
     const int dt = rows[(2L * s + 1) * R + r];
+#endif
     int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
     if constexpr (kSlots == 2) {
       if (FLIGHT) earliest_arrived<M>(a0, a1, t, pmin, arr_miner);
@@ -460,15 +506,27 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
     int miner2 = M, d2 = -1;  // the adoption row's miner: the deepest pop
     if (any_adopt) {
       // Reads of b's rows, diagonals corrected from ocnt (the authority).
+#if TPUSIM_ONEHOT
+      const int unpub_b = contract_b<M>(height, b) - best_h;
+      const int cnt_b = contract_b<M>(ocnt, b);
+#else
       const int unpub_b = pick<M>(height, b) - best_h;
       const int cnt_b = pick<M>(ocnt, b);
+#endif
       int row_bpub[M], col_cp[M];
 #pragma unroll
       for (int i = 0; i < M; ++i) {
+#if TPUSIM_ONEHOT
+        const int oc_b = (i == b) ? cnt_b : contract_b<M>(ocp[i], b);
+        int row_b = 0;
+#pragma unroll
+        for (int k = 0; k < M; ++k) row_b += oin[k][i] * (k == b);
+#else
         const int oc_b = (i == b) ? cnt_b : pick<M>(ocp[i], b);
         int row_b = 0;
 #pragma unroll
         for (int k = 0; k < M; ++k) row_b = (k == b) ? oin[k][i] : row_b;
+#endif
         row_b = (i == b) ? cnt_b : row_b;
         row_bpub[i] = row_b - ((i == b) ? unpub_b : 0);
         col_cp[i] = oc_b - ((i == b) ? unpub_b : 0);
@@ -587,17 +645,17 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
 template <int M, bool FLIGHT, bool PACKED>
 cudaError_t launch_m(const int* rows, const int* cap, const int* prop, const Leaves& in,
                      const Leaves& out, int count16, int stale16, int steps, int n_runs,
-                     const Flight& fl, cudaStream_t stream) {
+                     const Flight& fl TPUSIM_SAMPLER_PARAM, cudaStream_t stream) {
   const dim3 grid((n_runs + kThreads - 1) / kThreads), block(kThreads);
   if (count16 && stale16) {
     event_loop_kernel<M, int16_t, int16_t, FLIGHT, PACKED>
-        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl);
+        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG);
   } else if (count16) {
     event_loop_kernel<M, int16_t, int32_t, FLIGHT, PACKED>
-        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl);
+        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG);
   } else if (!stale16) {
     event_loop_kernel<M, int32_t, int32_t, FLIGHT, PACKED>
-        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl);
+        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -606,7 +664,7 @@ cudaError_t launch_m(const int* rows, const int* cap, const int* prop, const Lea
 
 cudaError_t launch(const void* rows, const void* cap, const void* prop, void* const* in,
                    void* const* out, int n_miners, int count16, int stale16, int steps,
-                   int n_runs, const Flight& fl, void* stream) {
+                   int n_runs, const Flight& fl TPUSIM_SAMPLER_PARAM, void* stream) {
   if (n_runs <= 0 || steps <= 0) return cudaSuccess;
   if (n_miners != TPUSIM_MINERS) return cudaErrorInvalidValue;
   Leaves lin, lout;
@@ -619,7 +677,7 @@ cudaError_t launch(const void* rows, const void* cap, const void* prop, void* co
   const auto* pp = static_cast<const int*>(prop);
   const auto s = static_cast<cudaStream_t>(stream);
   return launch_m<TPUSIM_MINERS, TPUSIM_FLIGHT != 0, TPUSIM_PACKED != 0>(
-      rw, cp, pp, lin, lout, count16, stale16, steps, n_runs, fl, s);
+      rw, cp, pp, lin, lout, count16, stale16, steps, n_runs, fl TPUSIM_SAMPLER_ARG, s);
 }
 
 }  // namespace
@@ -633,13 +691,14 @@ extern "C" {
 int tpusim_event_loop_packed_flight_chunk(const void* rows, const void* cap, const void* prop,
                                           void* const* in, void* const* out, int n_miners,
                                           int count16, int stale16, int steps, int n_runs,
-                                          void* const* flight, int capacity, void* stream) {
+                                          void* const* flight, int capacity
+                                          TPUSIM_SAMPLER_C_PARAMS, void* stream) {
   if (capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Flight fl{static_cast<const int*>(flight[0]), static_cast<const int*>(flight[1]),
                   static_cast<int*>(flight[2]), static_cast<int*>(flight[3]),
                   static_cast<int*>(flight[4]), capacity};
-  return static_cast<int>(
-      launch(rows, cap, prop, in, out, n_miners, count16, stale16, steps, n_runs, fl, stream));
+  return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, count16, stale16, steps,
+                                 n_runs, fl TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #elif TPUSIM_FLIGHT
 // Launch one chunk with the flight recorder on `stream`, as
@@ -650,13 +709,14 @@ int tpusim_event_loop_packed_flight_chunk(const void* rows, const void* cap, con
 int tpusim_event_loop_flight_chunk(const void* rows, const void* cap, const void* prop,
                                    void* const* in, void* const* out, int n_miners,
                                    int count16, int stale16, int steps, int n_runs,
-                                   void* const* flight, int capacity, void* stream) {
+                                   void* const* flight, int capacity TPUSIM_SAMPLER_C_PARAMS,
+                                   void* stream) {
   if (capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Flight fl{static_cast<const int*>(flight[0]), static_cast<const int*>(flight[1]),
                   static_cast<int*>(flight[2]), static_cast<int*>(flight[3]),
                   static_cast<int*>(flight[4]), capacity};
-  return static_cast<int>(
-      launch(rows, cap, prop, in, out, n_miners, count16, stale16, steps, n_runs, fl, stream));
+  return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, count16, stale16, steps,
+                                 n_runs, fl TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #elif TPUSIM_PACKED
 // Launch one chunk of a packed grid on `stream`, as tpusim_event_loop_chunk
@@ -664,10 +724,10 @@ int tpusim_event_loop_flight_chunk(const void* rows, const void* cap, const void
 // per (miner, run).
 int tpusim_event_loop_packed_chunk(const void* rows, const void* cap, const void* prop,
                                    void* const* in, void* const* out, int n_miners,
-                                   int count16, int stale16, int steps, int n_runs,
-                                   void* stream) {
+                                   int count16, int stale16, int steps, int n_runs
+                                   TPUSIM_SAMPLER_C_PARAMS, void* stream) {
   return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, count16, stale16, steps,
-                                 n_runs, Flight{}, stream));
+                                 n_runs, Flight{} TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #else
 // Launch one chunk on `stream` for `n_miners` == TPUSIM_MINERS miners. `in`
@@ -676,10 +736,10 @@ int tpusim_event_loop_packed_chunk(const void* rows, const void* cap, const void
 // kernel runs asynchronously.
 int tpusim_event_loop_chunk(const void* rows, const void* cap, const void* prop,
                             void* const* in, void* const* out, int n_miners,
-                            int count16, int stale16, int steps, int n_runs,
-                            void* stream) {
+                            int count16, int stale16, int steps, int n_runs
+                            TPUSIM_SAMPLER_C_PARAMS, void* stream) {
   return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, count16, stale16, steps,
-                                 n_runs, Flight{}, stream));
+                                 n_runs, Flight{} TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #endif
 

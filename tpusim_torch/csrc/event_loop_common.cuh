@@ -2,8 +2,11 @@
 // event_loop_exact.cu for exact mode): the state constants, loads and stores
 // of a leaf in its own type, b-indexed reads as selects, the arrival-group
 // buffer (split K = 2 slots, and the generic K >= 3 slots), the flight
-// recorder's ring rows, and the wide variants' state held in place in the
-// output leaves (Column, WideGroups).
+// recorder's ring rows, the wide variants' state held in place in the
+// output leaves (Column, WideGroups), the raw-word variants' mapping of a
+// step's threefry words (Sampler, draw_raw, and map_raw_words_kernel, the
+// mapping alone) and the one-hot variants' contractions (contract_b,
+// contract_col).
 
 #pragma once
 
@@ -51,6 +54,40 @@ static_assert(TPUSIM_MINERS >= 1 && (TPUSIM_WIDE || TPUSIM_MINERS <= 16),
 #endif
 static_assert(TPUSIM_GROUP_SLOTS >= 2, "2 or more group slots");
 
+// The raw-word variants (-DTPUSIM_RAW_WORDS=1, K5a): a step's row holds the
+// two raw uint32 threefry words, stored as int32 bit patterns, and the kernel
+// maps them to (winner, interval) itself from the winner thresholds and the
+// mean interval, which it takes as one more argument, a Sampler
+// (TPUSIM_SAMPLER_PARAM). Without the flag the rows are pre-mapped and the
+// kernels' text is as it was.
+#ifndef TPUSIM_RAW_WORDS
+#define TPUSIM_RAW_WORDS 0
+#endif
+
+// The one-hot variants (-DTPUSIM_ONEHOT=1, K5b): every read indexed by the
+// best chain's owner b is a contraction over the miner axis with the one-hot
+// of b, where the other variants read the one entry.
+#ifndef TPUSIM_ONEHOT
+#define TPUSIM_ONEHOT 0
+#endif
+
+// The Sampler as a kernel's last parameter and its argument, and the C entry
+// points' three addresses (lo, hi, mean) before the stream. Empty without the
+// flag.
+#if TPUSIM_RAW_WORDS
+#define TPUSIM_SAMPLER_PARAM , Sampler smp
+#define TPUSIM_SAMPLER_ARG , smp
+#define TPUSIM_SAMPLER_C_PARAMS , const void *lo, const void *hi, const void *mean
+#define TPUSIM_SAMPLER_C_ARGS                                                   \
+  , Sampler{static_cast<const unsigned*>(lo), static_cast<const unsigned*>(hi), \
+            static_cast<const float*>(mean)}
+#else
+#define TPUSIM_SAMPLER_PARAM
+#define TPUSIM_SAMPLER_ARG
+#define TPUSIM_SAMPLER_C_PARAMS
+#define TPUSIM_SAMPLER_C_ARGS
+#endif
+
 namespace {
 
 constexpr int kInf = 1 << 30;             // state.INF_TIME
@@ -79,6 +116,119 @@ __device__ __forceinline__ int pick(const int (&v)[M], int b) {
   for (int m = 0; m < M; ++m) x = (m == b) ? v[m] : x;
   return x;
 }
+
+#if TPUSIM_ONEHOT
+// v[b] as the one-hot contraction sum_m v[m] * [m == b]
+// (tpusim/pallas_engine.py:442-449): the one-hot variants' read of what pick
+// selects.
+template <int M>
+__device__ __forceinline__ int contract_b(const int (&v)[M], int b) {
+  int x = 0;
+#pragma unroll
+  for (int m = 0; m < M; ++m) x += v[m] * (m == b);
+  return x;
+}
+#endif
+
+#if TPUSIM_RAW_WORDS
+// The raw-word variants' sampler operands (K5a): the cumulative winner
+// thresholds as uint32 intervals [lo[m], hi[m]) and the mean interval in ms,
+// one set for every run, or with PACKED per run: lo and hi (M, R) runs-last,
+// mean (R,).
+struct Sampler {
+  const unsigned* lo;
+  const unsigned* hi;
+  const float* mean;
+};
+
+// float32 log1p(x) for x in (-1, 0]: tpusim_torch/sampling.py::_log1p_neg
+// operation for operation, which is XLA:CPU's compiled expansion (a Cephes
+// rational approximation for small |x|, logf of 1 + x otherwise). The 24
+// multiply-adds that XLA's x86 backend contracts are __fmaf_rn; every other
+// multiply, add, subtract and divide is an explicitly rounded intrinsic,
+// which nvcc never contracts (its default --fmad=true would fuse any
+// a * b + c it sees). The constants are the float32 values of sampling.py's.
+__device__ __forceinline__ float log1p_neg(float x) {
+  // Small |x|: x + (-x^2/2 + x^3 * d(x)/n(x)).
+  const float x2 = __fmul_rn(x, x);
+  const float x0 = __fmul_rn(x, 0.0f);
+  float n = __fmaf_rn(__fadd_rn(x0, 1.0f), x, 0x1.e2035ap+3f);
+  n = __fmaf_rn(n, x, 0x1.4c30b6p+6f);
+  n = __fmaf_rn(n, x, 0x1.bb865ap+7f);
+  n = __fmaf_rn(n, x, 0x1.351946p+8f);
+  n = __fmaf_rn(n, x, 0x1.b0db14p+7f);
+  n = __fmaf_rn(n, x, 0x1.e0f304p+5f);
+  float d = __fmaf_rn(__fadd_rn(x0, 0x1.7bc096p-15f), x, 0x1.fe818ap-2f);
+  d = __fmaf_rn(d, x, 0x1.a509f4p+2f);
+  d = __fmaf_rn(d, x, 0x1.de9738p+4f);
+  d = __fmaf_rn(d, x, 0x1.e798ecp+5f);
+  d = __fmaf_rn(d, x, 0x1.c8e75ap+5f);
+  d = __fmaf_rn(d, x, 0x1.40a202p+4f);
+  const float small =
+      __fadd_rn(x, __fmaf_rn(-x2, 0.5f, __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(d, n))));
+
+  // Otherwise logf(y), y = 1 + x clamped below at the least normal float:
+  // the mantissa split at sqrt(1/2), three cubic pieces, ln 2 in two parts.
+  const float y = __fadd_rn(x, 1.0f);
+  const float yc = y > 0x1p-126f ? y : 0x1p-126f;
+  const int ybits = __float_as_int(yc);
+  const float m = __int_as_float((ybits & 0x7FFFFF) | 0x3F000000);  // [0.5, 1)
+  const bool lt = m < 0x1.6a09e6p-1f;
+  const float z = __fadd_rn(__fsub_rn(m, 1.0f), lt ? m : 0.0f);
+  const float k = __fsub_rn(__fadd_rn(__int2float_rn((ybits >> 23) - 127), 1.0f),
+                            lt ? 1.0f : 0.0f);
+  const float z2 = __fmul_rn(z, z);
+  const float z3 = __fmul_rn(z2, z);
+  const float a = __fmaf_rn(__fmaf_rn(z, 0x1.204376p-4f, -0x1.d7a37p-4f), z, 0x1.de4a34p-4f);
+  const float b = __fmaf_rn(__fmaf_rn(z, -0x1.fcba9ep-4f, 0x1.23d37ep-3f), z, -0x1.555cap-3f);
+  const float c = __fmaf_rn(__fmaf_rn(z, 0x1.999d58p-3f, -0x1.fffff8p-3f), z, 0x1.555554p-2f);
+  const float p = __fmaf_rn(__fmaf_rn(a, z3, b), z3, c);
+  float big = __fmaf_rn(k, 0x1.63p-1f,
+                        __fadd_rn(__fmaf_rn(-z2, 0.5f, z),
+                                  __fmaf_rn(p, z3, __fmul_rn(k, -0x1.bd0106p-13f))));
+  // logf's special values: y <= 0 or NaN -> NaN, 0 -> -inf, inf -> inf.
+  if (!(y > 0.0f)) big = __int_as_float(0x7FC00000);
+  if (y == 0.0f) big = -__int_as_float(0x7F800000);
+  if (y == __int_as_float(0x7F800000)) big = y;
+  return fabsf(x) < 0x1.a8279ap-2f ? small : big;
+}
+
+// The interval in integer ms of one raw word (sampling.interval_from_bits):
+// floor(-log1p(-u) * mean), clamped at 2^27 ms, u = (w >> 8) * 2^-24.
+__device__ __forceinline__ int interval_from_word(unsigned w, float mean) {
+  const float x = __fmul_rn(__int2float_rn(static_cast<int>(w >> 8)), -0x1p-24f);  // -u, exact
+  return __float2int_rz(fminf(__fmul_rn(log1p_neg(x), -mean), 0x1p27f));
+}
+
+// The winner of one raw word: the miner m with lo[m] <= w < hi[m], the last
+// interval closed (tpusim/pallas_engine.py:301-304, the ~96/2^32 words past
+// the 100 % threshold go to the last miner). Entry m of lo and hi is at
+// m * stride.
+template <int M>
+__device__ __forceinline__ int winner_from_word(unsigned w, const unsigned* lo,
+                                                const unsigned* hi, long stride) {
+  int wq = 0;
+#pragma unroll 4
+  for (int m = 0; m < M; ++m) {
+    if (w >= lo[m * stride] && (m == M - 1 || w < hi[m * stride])) wq = m;
+  }
+  return wq;
+}
+
+// Step s's (winner, interval) for run r from its two raw words (K5a): the
+// mapping that the other variants find already done in their rows. A
+// kernel draws only on a step where a block is found: nothing else reads
+// the pair.
+template <int M, bool PACKED>
+__device__ __forceinline__ void draw_raw(const int* rows, int s, int r, long R,
+                                         const Sampler& smp, int& wq, int& dt) {
+  const unsigned w = static_cast<unsigned>(rows[(2L * s) * R + r]);
+  const unsigned wi = static_cast<unsigned>(rows[(2L * s + 1) * R + r]);
+  const long off = PACKED ? r : 0, stride = PACKED ? R : 1;
+  wq = winner_from_word<M>(w, smp.lo + off, smp.hi + off, stride);
+  dt = interval_from_word(wi, smp.mean[off]);
+}
+#endif
 
 // pallas push_groups2 for one miner: append (arrival, count) where `d`:
 // the first empty slot, an equal arrival merged into the last occupied
@@ -275,6 +425,20 @@ struct Column {
   __device__ __forceinline__ void set(long e, int v) const { p[e * R] = static_cast<T>(v); }
 };
 
+#if TPUSIM_ONEHOT
+// Entry base + b * stride of a run's column for the run-dependent b, as the
+// one-hot contraction sum_p c(base + p * stride) * [p == b] over the M
+// miners (K5b): M loads where the other wide variants load one entry.
+template <typename T>
+__device__ __forceinline__ int contract_col(const Column<T>& c, long base, long stride, int b,
+                                            int M) {
+  int x = 0;
+#pragma unroll 4
+  for (int p = 0; p < M; ++p) x += c(base + p * stride) * (p == b);
+  return x;
+}
+#endif
+
 // Entries a wide kernel loads before it stores any of them. Its leaves are
 // plain pointers that the compiler must assume may alias, so a load cannot
 // move above an earlier store: without batching, each copied entry waits a
@@ -318,7 +482,11 @@ __device__ __forceinline__ void stale_pass(int M, int best_h, int b, const Colum
       if (i >= M) break;
       h[u] = height(i);
       cnt[u] = ocnt(i);
+#if TPUSIM_ONEHOT
+      cpb[u] = contract_col(ocp, i * M, 1, b, M);
+#else
       cpb[u] = ocp(i * M + b);
+#endif
       st[u] = stale(i);
       sb[u] = sbm(i);
     }
@@ -461,3 +629,35 @@ struct WideGroups {
 };
 
 }  // namespace
+
+#if TPUSIM_RAW_WORDS
+namespace {
+
+// The raw-word mapping alone, one word pair a thread: words (2, n) int32 bit
+// patterns, winner words then interval words, to out (2, n), winners then
+// intervals, with one set of thresholds and one mean. The event-loop kernels
+// inline the same two device functions; this exists to hold them against
+// sampling.winners_from_bits and interval_from_bits over every uniform.
+__global__ void __launch_bounds__(256)
+map_raw_words_kernel(const int* __restrict__ words, Sampler smp, int n, int* __restrict__ out) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = winner_from_word<TPUSIM_MINERS>(static_cast<unsigned>(words[i]), smp.lo, smp.hi, 1);
+  out[n + i] = interval_from_word(static_cast<unsigned>(words[n + i]), smp.mean[0]);
+}
+
+}  // namespace
+
+// Launch map_raw_words_kernel on `stream` for n word pairs and the
+// TPUSIM_MINERS thresholds lo, hi (uint32) and mean (float32, one value).
+// Returns the launch's cudaError_t.
+extern "C" int tpusim_map_raw_words(const void* words, const void* lo, const void* hi,
+                                    const void* mean, int n, void* out, void* stream) {
+  if (n <= 0) return 0;
+  const Sampler smp{static_cast<const unsigned*>(lo), static_cast<const unsigned*>(hi),
+                    static_cast<const float*>(mean)};
+  map_raw_words_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(words), smp, n, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -132,6 +132,18 @@
 // and counts cp's accesses as HBM bytes once the tensor exceeds the L2. With
 // one thread a run, 2 warps an SM at R = 8192 issue those stores one after
 // another, far below the memory's rate.
+//
+// Raw words (TPUSIM_RAW_WORDS, K5a) and one-hot reads (TPUSIM_ONEHOT, K5b), in
+// every variant above, as in event_loop.cu. The one-hot form also reads the
+// cp plane of b as the contraction cpb[j][o] = sum_p cp[p, j, o] * [p == b]
+// over the M planes (pallas_engine.py:477-479), where the gather reads one
+// plane: M loads for each entry the update copies, and cpb's diagonal as the
+// eye contraction sum_q cpb[i][q] * [i == q]. The update stays in place: a
+// plane p that an earlier write of the event touched is an adopter's, never
+// b's, and enters the sum times 0. What bounds it: K2's, plus for K5a the
+// mapping of each find, and for K5b the contractions' operations and cp
+// loads (M^3 an adopting event where the gather loads (M - A - 1) M), which
+// chip_smoke.py counts by replay.
 
 #include "event_loop_common.cuh"
 
@@ -152,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
 event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
                         const int* __restrict__ prop_in, unsigned /* selfish */, Leaves in,
                         Leaves out, int steps, int n_runs, Flight fl,
-                        const int* __restrict__ selfish_in) {
+                        const int* __restrict__ selfish_in TPUSIM_SAMPLER_PARAM) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_runs) return;
   const long R = n_runs;
@@ -201,8 +213,13 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
     // of the chunk (t moves only while t < cap): stopping is exact.
     if (!(t < cap)) break;
     const bool found_due = (t == nbt);
+#if TPUSIM_RAW_WORDS
+    int wq = 0, dt = 0;
+    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
+#else
     const int wq = rows[(2L * s) * R + r];
     const int dt = rows[(2L * s + 1) * R + r];
+#endif
     int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
     if (FLIGHT) {
 #pragma unroll 4
@@ -296,14 +313,25 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
     if (any_adopt) {
       // b never adopts (its published height is the best); its published
       // own count is the diagonal correction of b's rows.
+#if TPUSIM_ONEHOT
+      // cpb[j][o] = cp[b, j, o] as the contraction over the M planes.
+      const auto cpb = [&](long jo) { return contract_col(cp, jo, static_cast<long>(M) * M, b, M); };
+      const int bpub = contract_col(ocnt, 0, 1, b, M) - (contract_col(height, 0, 1, b, M) - best_h);
+#else
       const long bM = static_cast<long>(b) * M;
       const int bpub = ocnt(b) - (height(b) - best_h);
+#endif
       // The adopters, and their reorg stale accounting: own blocks above
       // lca(i, b).
       stale_pass(M, best_h, b, height, ocnt, ocp, stale, sbm, adopt, dmax, miner2, d2);
       // b's published count row: own_in's row b, diagonal corrected.
+#if TPUSIM_ONEHOT
+      batched(M, [&](long o) { return o == b ? bpub : contract_col(oin, o, M, b, M); },
+              [&](long o, int v) { row_bpub[o] = v; });
+#else
       batched(M, [&](long o) { return o == b ? bpub : oin(bM + o); },
               [&](long o, int v) { row_bpub[o] = v; });
+#endif
       // own_cp[i][j] = cp[i, j, i] of the factored update (tpusim.state.
       // notify), with cpb[j][o] = cp[b, j, o]:
       //   cp[i, j] = a_i ? ((a_j | j == b) ? b_pub : cpb[j])
@@ -314,14 +342,30 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
         const long iM = static_cast<long>(i) * M;
         if (adopt[i]) {
           const int rb_i = row_bpub[i];
+#if TPUSIM_ONEHOT
+          batched(
+              M, [&](long j) { return adopt[j] || j == b ? rb_i : cpb(j * M + i); },
+              [&](long j, int v) { ocp.set(iM + j, v); });
+#else
           batched(
               M, [&](long j) { return adopt[j] || j == b ? rb_i : cp((bM + j) * M + i); },
               [&](long j, int v) { ocp.set(iM + j, v); });
+#endif
           batched(M, [&](long j) { return row_bpub[j]; },
                   [&](long j, int v) { oin.set(iM + j, v); });
           ocnt.set(i, rb_i);
         } else {
+#if TPUSIM_ONEHOT
+          // cpb's diagonal entry (i, i), as the eye contraction over cpb[i].
+          int col = bpub;
+          if (i != b) {
+            col = 0;
+#pragma unroll 1
+            for (int q = 0; q < M; ++q) col += q == i ? cpb(iM + q) : 0;
+          }
+#else
           const int col = (i == b) ? bpub : cp((bM + i) * M + i);
+#endif
           batched(M, [&](long j) { return adopt[j]; }, [&](long j, int aj) {
             if (aj) ocp.set(iM + j, col);
           });
@@ -338,9 +382,15 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
             batched(M, [&](long o) { return row_bpub[o]; },
                     [&](long o, int v) { cp.set(dst + o, v); });
           } else {
+#if TPUSIM_ONEHOT
+            const long src = (ai ? j : i) * M;
+            batched(M, [&](long o) { return cpb(src + o); },
+                    [&](long o, int v) { cp.set(dst + o, v); });
+#else
             const long src = (bM + (ai ? j : i)) * M;
             batched(M, [&](long o) { return cp(src + o); },
                     [&](long o, int v) { cp.set(dst + o, v); });
+#endif
           }
         });
       }
@@ -407,7 +457,7 @@ __global__ void __launch_bounds__(kThreads)
 event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
                         const int* __restrict__ prop_in, unsigned selfish, Leaves in,
                         Leaves out, int steps, int n_runs, Flight fl,
-                        const int* __restrict__ selfish_in) {
+                        const int* __restrict__ selfish_in TPUSIM_SAMPLER_PARAM) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_runs) return;
   const long R = n_runs;
@@ -474,8 +524,13 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
     // of the chunk (t moves only while t < cap): stopping is exact.
     if (!(t < cap)) break;
     const bool found_due = (t == nbt);
+#if TPUSIM_RAW_WORDS
+    int wq = 0, dt = 0;
+    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
+#else
     const int wq = rows[(2L * s) * R + r];
     const int dt = rows[(2L * s + 1) * R + r];
+#endif
     int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
     if constexpr (kSlots == 2) {
       if (FLIGHT) earliest_arrived<M>(a0, a1, t, pmin, arr_miner);
@@ -587,15 +642,27 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
     int miner2 = M, d2 = -1;  // the adoption row's miner: the deepest pop
     if (adopt_mask) {
       // Reads of b's rows, diagonals corrected from ocnt (the authority).
+#if TPUSIM_ONEHOT
+      const int unpub_b = contract_b<M>(height, b) - best_h;
+      const int cnt_b = contract_b<M>(ocnt, b);
+#else
       const int unpub_b = pick<M>(height, b) - best_h;
       const int cnt_b = pick<M>(ocnt, b);
+#endif
       int row_bpub[M];
 #pragma unroll
       for (int i = 0; i < M; ++i) {
+#if TPUSIM_ONEHOT
+        const int oc_b = (i == b) ? cnt_b : contract_b<M>(ocp[i], b);
+        int row_b = 0;
+#pragma unroll
+        for (int k = 0; k < M; ++k) row_b += oin[k][i] * (k == b);
+#else
         const int oc_b = (i == b) ? cnt_b : pick<M>(ocp[i], b);
         int row_b = 0;
 #pragma unroll
         for (int k = 0; k < M; ++k) row_b = (k == b) ? oin[k][i] : row_b;
+#endif
         row_b = (i == b) ? cnt_b : row_b;
         row_bpub[i] = row_b - ((i == b) ? unpub_b : 0);
         // Reorg stale accounting: own blocks above lca(i, b).
@@ -612,6 +679,37 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
       //   Y[j] = (a_j | j == b) ? b_pub : cpb[j];  W[i] = i == b ? b_pub : cpb[i]
       //   cp[i, j] = a_i ? Y[j] : (a_j ? W[i] : cp[i, j])
       // and own_cp[i][j] = cp[i, j, i] of the same update.
+#if TPUSIM_ONEHOT
+      // K5b: cpb[j][o] = sum_p cp[p, j, o] * [p == b], M plane loads where
+      // the gather reads one (pallas_engine.py:477-479), and its diagonal
+      // cpb_diag[i] = sum_q cpb[i][q] * [i == q], the eye contraction.
+      const auto cpb = [&](int jo) {
+        int x = 0;
+#pragma unroll
+        for (int p = 0; p < M; ++p) {
+          x += static_cast<int>(cp[(static_cast<long>(p) * M * M + jo) * R]) * (p == b);
+        }
+        return x;
+      };
+      int cpb_diag[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        cpb_diag[i] = 0;
+#pragma unroll
+        for (int q = 0; q < M; ++q) cpb_diag[i] += (i == q) ? cpb(i * M + q) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          if (adopt[i]) {
+            ocp[i][j] = (adopt[j] || j == b) ? row_bpub[i] : cpb(j * M + i);
+          } else if (adopt[j]) {
+            ocp[i][j] = (i == b) ? row_bpub[i] : cpb_diag[i];
+          }
+        }
+      }
+#else
       const C* const cpb = cp + static_cast<long>(b) * M * M * R;
 #pragma unroll
       for (int i = 0; i < M; ++i) {
@@ -625,6 +723,7 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
           }
         }
       }
+#endif
 #pragma unroll 1
       for (int i = 0; i < M; ++i) {
         const bool ai = (adopt_mask >> i) & 1u;
@@ -637,9 +736,15 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
 #pragma unroll
             for (int o = 0; o < M; ++o) dst[o * R] = static_cast<C>(row_bpub[o]);
           } else {
+#if TPUSIM_ONEHOT
+            const int src = (ai ? j : i) * M;
+#pragma unroll
+            for (int o = 0; o < M; ++o) dst[o * R] = static_cast<C>(cpb(src + o));
+#else
             const C* const src = cpb + static_cast<long>(ai ? j : i) * M * R;
 #pragma unroll
             for (int o = 0; o < M; ++o) dst[o * R] = src[o * R];
+#endif
           }
         }
       }
@@ -749,18 +854,18 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
 template <int M, bool SELFISH, bool FLIGHT, bool PACKED>
 cudaError_t launch_ms(const int* rows, const int* cap, const int* prop, unsigned selfish,
                       const int* selfish_in, const Leaves& in, const Leaves& out, int count16,
-                      int stale16, int steps, int n_runs, const Flight& fl,
+                      int stale16, int steps, int n_runs, const Flight& fl TPUSIM_SAMPLER_PARAM,
                       cudaStream_t stream) {
   const dim3 grid((n_runs + kThreads - 1) / kThreads), block(kThreads);
   if (count16 && stale16) {
     event_loop_exact_kernel<M, int16_t, int16_t, SELFISH, FLIGHT, PACKED><<<grid, block, 0, stream>>>(
-        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in);
+        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in TPUSIM_SAMPLER_ARG);
   } else if (count16) {
     event_loop_exact_kernel<M, int16_t, int32_t, SELFISH, FLIGHT, PACKED><<<grid, block, 0, stream>>>(
-        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in);
+        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in TPUSIM_SAMPLER_ARG);
   } else if (!stale16) {
     event_loop_exact_kernel<M, int32_t, int32_t, SELFISH, FLIGHT, PACKED><<<grid, block, 0, stream>>>(
-        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in);
+        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in TPUSIM_SAMPLER_ARG);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -771,8 +876,8 @@ cudaError_t launch_ms(const int* rows, const int* cap, const int* prop, unsigned
 // selfish miner (SELFISH = false); the other variants take `selfish`.
 cudaError_t launch(const void* rows, const void* cap, const void* prop, void* const* in,
                    void* const* out, int n_miners, unsigned selfish, const int* selfish_in,
-                   int count16, int stale16, int steps, int n_runs, const Flight& fl,
-                   void* stream) {
+                   int count16, int stale16, int steps, int n_runs,
+                   const Flight& fl TPUSIM_SAMPLER_PARAM, void* stream) {
   if (n_runs <= 0 || steps <= 0) return cudaSuccess;
   if (n_miners != TPUSIM_MINERS) return cudaErrorInvalidValue;
 #if !TPUSIM_WIDE
@@ -792,10 +897,10 @@ cudaError_t launch(const void* rows, const void* cap, const void* prop, void* co
   return any_selfish
              ? launch_ms<TPUSIM_MINERS, true, kFlight, kPacked>(
                    rw, cp, pp, selfish, selfish_in, lin, lout, count16, stale16, steps, n_runs,
-                   fl, s)
+                   fl TPUSIM_SAMPLER_ARG, s)
              : launch_ms<TPUSIM_MINERS, false, kFlight, kPacked>(
                    rw, cp, pp, selfish, selfish_in, lin, lout, count16, stale16, steps, n_runs,
-                   fl, s);
+                   fl TPUSIM_SAMPLER_ARG, s);
 }
 
 // The uniform variants' selfish operand: the bit mask in a narrow library;
@@ -824,14 +929,15 @@ int tpusim_event_loop_exact_packed_flight_chunk(const void* rows, const void* ca
                                                 void* const* out, int n_miners,
                                                 const void* selfish, int count16, int stale16,
                                                 int steps, int n_runs, void* const* flight,
-                                                int capacity, void* stream) {
+                                                int capacity TPUSIM_SAMPLER_C_PARAMS,
+                                                void* stream) {
   if (capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Flight fl{static_cast<const int*>(flight[0]), static_cast<const int*>(flight[1]),
                   static_cast<int*>(flight[2]), static_cast<int*>(flight[3]),
                   static_cast<int*>(flight[4]), capacity};
   return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, 0u,
                                  static_cast<const int*>(selfish), count16, stale16, steps,
-                                 n_runs, fl, stream));
+                                 n_runs, fl TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #elif TPUSIM_FLIGHT
 // Launch one chunk with the flight recorder on `stream`, as
@@ -842,15 +948,15 @@ int tpusim_event_loop_exact_packed_flight_chunk(const void* rows, const void* ca
 int tpusim_event_loop_exact_flight_chunk(const void* rows, const void* cap, const void* prop,
                                          void* const* in, void* const* out, int n_miners,
                                          SelfishArg selfish, int count16, int stale16, int steps,
-                                         int n_runs, void* const* flight, int capacity,
-                                         void* stream) {
+                                         int n_runs, void* const* flight, int capacity
+                                         TPUSIM_SAMPLER_C_PARAMS, void* stream) {
   if (capacity < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Flight fl{static_cast<const int*>(flight[0]), static_cast<const int*>(flight[1]),
                   static_cast<int*>(flight[2]), static_cast<int*>(flight[3]),
                   static_cast<int*>(flight[4]), capacity};
   return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, selfish_mask(selfish),
-                                 selfish_flags(selfish), count16, stale16, steps, n_runs, fl,
-                                 stream));
+                                 selfish_flags(selfish), count16, stale16, steps, n_runs,
+                                 fl TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #elif TPUSIM_PACKED
 // Launch one chunk of a packed grid on `stream`, as
@@ -860,10 +966,11 @@ int tpusim_event_loop_exact_flight_chunk(const void* rows, const void* cap, cons
 int tpusim_event_loop_exact_packed_chunk(const void* rows, const void* cap, const void* prop,
                                          void* const* in, void* const* out, int n_miners,
                                          const void* selfish, int count16, int stale16,
-                                         int steps, int n_runs, void* stream) {
+                                         int steps, int n_runs TPUSIM_SAMPLER_C_PARAMS,
+                                         void* stream) {
   return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, 0u,
                                  static_cast<const int*>(selfish), count16, stale16, steps,
-                                 n_runs, Flight{}, stream));
+                                 n_runs, Flight{} TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #else
 // Launch one chunk on `stream` for `n_miners` == TPUSIM_MINERS miners. `in`
@@ -874,10 +981,10 @@ int tpusim_event_loop_exact_packed_chunk(const void* rows, const void* cap, cons
 int tpusim_event_loop_exact_chunk(const void* rows, const void* cap, const void* prop,
                                   void* const* in, void* const* out, int n_miners,
                                   SelfishArg selfish, int count16, int stale16, int steps,
-                                  int n_runs, void* stream) {
+                                  int n_runs TPUSIM_SAMPLER_C_PARAMS, void* stream) {
   return static_cast<int>(launch(rows, cap, prop, in, out, n_miners, selfish_mask(selfish),
                                  selfish_flags(selfish), count16, stale16, steps, n_runs,
-                                 Flight{}, stream));
+                                 Flight{} TPUSIM_SAMPLER_C_ARGS, stream));
 }
 #endif
 

@@ -3,10 +3,12 @@ its single-device threefry path.
 
 A batch of runs advances in fixed-step chunks. Each chunk draws every run's
 threefry words (``fold_in(run_key, 1 + chunk)``), maps them to pre-mapped
-int32 (winner, interval ms) rows, runs the event-loop kernel for
-``chunk_steps`` events, and re-bases clocks and block counts, all on the
-device. The remaining-time ledger stays on the device as a base-2^30 int32
-pair, as in the reference's ``_device_loop``; the host loop only reads one
+int32 (winner, interval ms) rows (or, with ``rng_batch=False``, hands the
+raw words to the kernel's raw-word variant, which maps them per event),
+runs the event-loop kernel for ``chunk_steps`` events, and re-bases clocks
+and block counts, all on the device. The remaining-time ledger stays on
+the device as a base-2^30 int32 pair, as in the reference's
+``_device_loop``; the host loop only reads one
 "any run unfinished" flag per chunk. After the last chunk, ``final_stats``
 runs on the device and the host reduces in int64/float64.
 
@@ -21,9 +23,12 @@ chunk through the kernel's flight variant and comes back per run as
 :mod:`tpusim_torch.packed`: per-run params, durations and raw per-run
 outputs, through the kernel's packed variant, with or without the ring);
 anything else raises a ValueError that names its ROADMAP.md item.
-Pipelined dispatch, meshes and chaos seams are later slices. ``rng_batch``,
-``consensus_gather`` and ``superstep`` change how the reference schedules
-the same arithmetic, never its results, so the port accepts and ignores them.
+Pipelined dispatch, meshes and chaos seams are later slices. The reference's
+legacy knobs run the kernels they name: ``rng_batch=False`` the raw-word
+variant (K5a) and ``consensus_gather=False`` the one-hot variant (K5b),
+each with the same results as the default. ``superstep`` only unrolls the
+reference's step loop, which a thread's loop over events has no counterpart
+of, so the port accepts it.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from . import sampling, threefry
 from .config import SimConfig
 from .convergence import STATS as MOMENT_STATS, moment_keys
 from .event_loop import (
-    DEPTH_BUCKETS, event_loop_chunk, state_from_kernel, state_to_kernel,
+    DEPTH_BUCKETS, event_loop_chunk, make_sampler, state_from_kernel, state_to_kernel,
 )
 from .flight import (
     FlightRecorder, advance_base, advance_height_base, flight_from_kernel, flight_to_kernel,
@@ -222,6 +227,7 @@ class Engine:
         self.device = resolve_device(device)
         self.event_loop = event_loop
         self.params = make_params(config, self.device)
+        self._sampler = None
         self.n_miners = config.network.n_miners
         self.group_slots = config.resolved_group_slots
         self.count_dtype = COUNT_DTYPES[config.resolved_count_dtype]
@@ -260,8 +266,11 @@ class Engine:
 
     def _rows(self, keys: torch.Tensor, chunk_idx: int) -> torch.Tensor:
         """Chunk ``chunk_idx``'s pre-mapped (winner, interval ms) rows,
-        int32 (steps, 2, R)."""
+        int32 (steps, 2, R); with ``rng_batch=False`` its raw words as int32
+        bit patterns, which the kernel maps (:meth:`loop_options`)."""
         words = threefry.chunk_words(keys, chunk_idx, self.chunk_steps)
+        if not self.config.rng_batch:
+            return threefry.to_int32(words)
         return torch.stack(
             [
                 sampling.winners_from_bits(words[:, 0], self.params.thresholds),
@@ -283,6 +292,20 @@ class Engine:
             return prop, self.selfish
         return prop, self.params.selfish.t().to(I32).contiguous()
 
+    def loop_options(self) -> dict:
+        """The event loop's keyword operands for this config's legacy knobs:
+        ``sampler`` (the winner thresholds and mean interval, per run when
+        packed) when ``rng_batch`` is off, so the kernel maps the raw words
+        (K5a); ``onehot`` when ``consensus_gather`` is off (K5b)."""
+        sampler = None
+        if not self.config.rng_batch:
+            # Made once per params (a packed dispatch sets new ones).
+            if self._sampler is None or self._sampler[0] is not self.params:
+                p = self.params
+                self._sampler = (p, make_sampler(p.thresholds, p.mean_interval_ms))
+            sampler = self._sampler[1]
+        return dict(sampler=sampler, onehot=not self.config.consensus_gather)
+
     def _chunk(self, state: SimState, aux, cap: torch.Tensor, keys: torch.Tensor,
                chunk_idx: int):
         """One chunk: draw, run the event loop, re-base. ``aux`` is
@@ -293,7 +316,7 @@ class Engine:
         leaves, counters, flight = self.event_loop(
             self._rows(keys, chunk_idx), cap, prop,
             state_to_kernel(state), counters_to_kernel(ctr), selfish,
-            flight=None if fr is None else flight_to_kernel(fr),
+            flight=None if fr is None else flight_to_kernel(fr), **self.loop_options(),
         )
         ctr = counters_from_kernel(counters)
         state, elapsed = rebase(state_from_kernel(state, leaves))

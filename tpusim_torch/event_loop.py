@@ -2,7 +2,7 @@
 hand-written CUDA kernels and as their plain PyTorch versions.
 
 Counterpart of ``tpusim/pallas_engine.py::_make_kernel`` (gather reads,
-pre-mapped (winner, interval) rows), in its two modes:
+pre-mapped (winner, interval) rows by default), in its two modes:
 
 * fast mode (K1, ``csrc/event_loop.cu``): the pairwise ``own_cp``/``own_in``
   approximation, honest rosters only;
@@ -21,7 +21,14 @@ K-slot buffer (K5c, the sources built with ``TPUSIM_GROUP_SLOTS``). Rosters
 of up to 16 miners (:data:`NARROW_MAX_MINERS`) run the kernels that hold a
 run's state in registers; wider ones run every variant's wide form (K1w,
 K2w, the sources built with ``TPUSIM_WIDE``), which holds it in global
-memory.
+memory. The reference's two legacy knobs have variants of their own, each
+of every variant above: with ``sampler`` (``SimConfig.rng_batch=False``,
+K5a, the sources built with ``TPUSIM_RAW_WORDS``) the rows hold the raw
+threefry words and the kernel maps them per event from the winner
+thresholds and the mean interval; with ``onehot``
+(``SimConfig.consensus_gather=False``, K5b, ``TPUSIM_ONEHOT``) every read
+indexed by the best chain's owner b is a one-hot contraction over the
+miner axis. Both give the same values as the default variants.
 
 Both versions take the state runs-last (``(..., R)``, the Pallas kernel's
 layout), so the kernel's threads, one per run, read neighbouring addresses.
@@ -37,17 +44,20 @@ raises. There is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
 from .csrc.build import NARROW_MAX_MINERS, SOURCES
 from .flight import FLIGHT_LEAVES, KIND_ARRIVAL, KIND_FIND, KIND_REORG, KIND_STALE, N_FIELDS
+from .sampling import interval_from_bits, winners_from_bits
 from .state import INF_TIME, NEG_TIME_CAP, SimState
+from .threefry import MASK, to_int32
 
 __all__ = [
-    "NARROW_MAX_MINERS", "DEPTH_BUCKETS", "event_loop_chunk", "event_loop_chunk_plain",
-    "state_to_kernel", "state_from_kernel", "leaf_shapes", "leaf_dtypes",
+    "NARROW_MAX_MINERS", "DEPTH_BUCKETS", "Sampler", "event_loop_chunk", "event_loop_chunk_plain",
+    "make_sampler", "map_raw_words", "map_raw_words_plain", "state_to_kernel",
+    "state_from_kernel", "leaf_shapes", "leaf_dtypes",
 ]
 
 I32 = torch.int32
@@ -73,10 +83,34 @@ COUNT_LEAVES = frozenset(
 #: their own bucket, the last counts depth >= 8. Compiled into the kernels.
 DEPTH_BUCKETS = 8
 
-#: Kernel launches so far, by kernel (``csrc.build.SOURCES``: the wide
-#: variants under names of their own); each wrapper adds one per launch of
-#: its kernel and nothing else.
-launches = dict.fromkeys(SOURCES, 0)
+#: Kernel launches so far, by kernel (``csrc.build.SOURCES``: the wide,
+#: raw-word and one-hot variants under names of their own, and
+#: ``map_raw_words``); each wrapper adds one per launch of its kernel and
+#: nothing else.
+launches = dict.fromkeys([*SOURCES, "map_raw_words"], 0)
+
+
+class Sampler(NamedTuple):
+    """The raw-word variants' sampler operands (K5a; the reference's
+    ``rng_batch=False`` kernel bakes them in, pallas_engine.py:293-309):
+    the winner intervals ``[lo[m], hi[m])`` as int32 bit patterns of the
+    uint32 thresholds, (M,) or per run (M, R) runs-last, and the mean
+    interval in ms, float32 (1,) or per run (R,)."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    mean: torch.Tensor
+
+
+def make_sampler(thresholds: torch.Tensor, mean_interval_ms) -> Sampler:
+    """The :class:`Sampler` of a roster's params: ``thresholds`` int64
+    uint32 values (M,) or per run (R, M), ``mean_interval_ms`` a float or a
+    float32 (R,) tensor (``state.SimParams``)."""
+    lo = torch.cat([torch.zeros_like(thresholds[..., :1]), thresholds[..., :-1]], dim=-1)
+    per_run = thresholds.dim() == 2
+    as_kernel = lambda x: to_int32(x.t() if per_run else x).contiguous()
+    mean = torch.as_tensor(mean_interval_ms, dtype=torch.float32, device=thresholds.device)
+    return Sampler(as_kernel(lo), as_kernel(thresholds), mean.reshape(-1).contiguous())
 
 
 def leaf_shapes(m: int, k: int, exact: bool = False) -> list[tuple[int, ...]]:
@@ -140,12 +174,15 @@ def state_from_kernel(state: SimState, leaves) -> SimState:
 
 
 def event_loop_chunk(rows, cap, prop, leaves, counters, selfish: Sequence[bool] = (),
-                     flight=None):
+                     flight=None, *, sampler: Sampler | None = None, onehot: bool = False):
     """Run ``rows.shape[0]`` events for every run.
 
     ``rows`` int32 (steps, 2, R): pre-mapped (winner index, interval ms) per
-    step; ``cap`` int32 (R,): each run's chunk-relative end; ``prop`` int32
-    (M,): propagation delays, or per run (M, R) for a packed grid, which
+    step, or with ``sampler`` (a :class:`Sampler`: per-run thresholds and
+    means when ``prop`` is per run) the step's two raw threefry words as
+    int32 bit patterns, which selects the raw-word variant (K5a); ``cap``
+    int32 (R,): each run's chunk-relative end; ``prop`` int32 (M,):
+    propagation delays, or per run (M, R) for a packed grid, which
     selects the kernel's packed variant; ``leaves`` the 11 fast-mode or 14
     exact-mode state leaves and ``counters`` the 5 counter leaves,
     runs-last; ``selfish`` the M per-miner selfish flags (exact mode; fast
@@ -153,10 +190,12 @@ def event_loop_chunk(rows, cap, prop, leaves, counters, selfish: Sequence[bool] 
     kernel, or with a per-run ``prop`` an int32 (M, R) tensor of per-run
     flags; ``flight`` None, or the flight recorder's three runs-last leaves
     (:data:`tpusim_torch.flight.FLIGHT_LEAVES`), which select the kernel's
-    flight variant. Returns new ``(leaves, counters, flight)`` tuples
-    (``flight`` None when it was None); the inputs are not modified."""
+    flight variant; ``onehot`` selects the one-hot variant (K5b). Returns
+    new ``(leaves, counters, flight)`` tuples (``flight`` None when it was
+    None); the inputs are not modified."""
     per_run_selfish = (selfish,) if torch.is_tensor(selfish) else ()
-    tensors = (rows, cap, prop, *leaves, *counters, *(flight or ()), *per_run_selfish)
+    tensors = (rows, cap, prop, *leaves, *counters, *(flight or ()), *per_run_selfish,
+               *(sampler or ()))
     devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(f"event_loop_chunk: tensors on several devices {sorted(map(str, devices))}")
@@ -164,11 +203,12 @@ def event_loop_chunk(rows, cap, prop, leaves, counters, selfish: Sequence[bool] 
     if per_run_selfish and prop.dim() != 2:
         raise ValueError("event_loop_chunk: per-run selfish flags need a per-run prop (M, R)")
     if device.type == "cpu":
-        return event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish, flight)
+        return event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish, flight,
+                                      sampler=sampler, onehot=onehot)
     if device.type != "cuda":
         raise ValueError(f"event_loop_chunk runs on CUDA or the CPU, not {device}")
     return _launch(rows, cap, prop, tuple(leaves), tuple(counters), selfish,
-                   None if flight is None else tuple(flight))
+                   None if flight is None else tuple(flight), sampler, onehot)
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtypes) -> None:
@@ -229,7 +269,16 @@ def _check_flight(flight, r: int) -> int:
     return capacity
 
 
-def _launch(rows, cap, prop, leaves, counters, selfish, flight):
+def _check_sampler(sampler: Sampler, m: int, r: int, packed: bool) -> None:
+    if len(sampler) != len(Sampler._fields):
+        raise ValueError(f"event_loop_chunk: the sampler has {len(sampler)} operands, "
+                         f"expected {Sampler._fields}")
+    for name, x in zip(("lo", "hi"), sampler[:2]):
+        _check(name, x, (m, r) if packed else (m,), (I32,))
+    _check("mean", sampler.mean, (r,) if packed else (1,), (torch.float32,))
+
+
+def _launch(rows, cap, prop, leaves, counters, selfish, flight, sampler=None, onehot=False):
     from .csrc.build import entry_point, load_library
 
     exact = _exact(leaves)
@@ -262,12 +311,18 @@ def _launch(rows, cap, prop, leaves, counters, selfish, flight):
     for name, x, shape in zip(TELE_LEAVES, counters, [(1,), (1,), (1,), (m,), (DEPTH_BUCKETS,)]):
         _check(name, x, shape + (r,), (I32,))
     capacity = None if flight is None else _check_flight(flight, r)
+    if sampler is not None:
+        _check_sampler(sampler, m, r, packed)
 
     outs = tuple(torch.empty_like(x) for x in leaves + counters)
     ptrs = lambda xs: (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
     kernel = "event_loop_exact" if exact else "event_loop_fast"
     if wide:
         kernel += "_wide"
+    if sampler is not None:
+        kernel += "_raw"
+    if onehot:
+        kernel += "_onehot"
     if packed:
         kernel += "_packed"
     with torch.cuda.device(rows.device):
@@ -287,6 +342,8 @@ def _launch(rows, cap, prop, leaves, counters, selfish, flight):
             args.insert(6, _selfish_mask(selfish, m))
         if flight is not None:
             args += [ptrs((flight[1], flight[2]) + flight_out), capacity]
+        if sampler is not None:
+            args += [x.data_ptr() for x in sampler]
         err = getattr(lib, entry_point(kernel))(*args, stream)
     if err:
         raise RuntimeError(
@@ -297,7 +354,8 @@ def _launch(rows, cap, prop, leaves, counters, selfish, flight):
 
 
 def event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish: Sequence[bool] = (),
-                           flight=None):
+                           flight=None, *, sampler: Sampler | None = None,
+                           onehot: bool = False):
     """The plain PyTorch version of :func:`event_loop_chunk`, in the mode its
     leaves give: a transcription of the Pallas ``step``
     (pallas_engine.py:271-628, gather reads) over (M, R) tensors, with the
@@ -308,7 +366,12 @@ def event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish: Sequence[
     reveal; ``own_cp`` stays ``[i, j]`` in both modes. With ``flight`` each
     step also writes its ring rows (pallas_engine.py:548-609). A per-run
     ``prop`` and ``selfish`` (M, R) broadcast per lane exactly as the (M,)
-    ones do (the packed grid, pallas_engine.py:1065-1077).
+    ones do (the packed grid, pallas_engine.py:1065-1077). With ``sampler``
+    each step maps its raw words itself, the winner by the threshold
+    intervals and the interval by ``sampling.interval_from_bits``
+    (pallas_engine.py:293-309); with ``onehot`` b's rows and cp plane are
+    read as contractions with the one-hot of b (pallas_engine.py:442-449,
+    459-461, 477-479).
 
     Computes in int32 and stores each leaf in its own dtype: every count
     stays within ``SimConfig.count_bound``, so the values are those of the
@@ -342,6 +405,12 @@ def event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish: Sequence[
             sel = torch.tensor([bool(x) for x in selfish], dtype=torch.bool, device=dev)[:, None]
         any_selfish = bool(sel.any())
         diag = torch.arange(m, device=dev)
+        eye = (diag[:, None] == diag[None, :])[:, :, None]  # (M, M, 1)
+    if sampler is not None:
+        # The winner intervals as uint32 values, (M, 1) or per run (M, R).
+        lo, hi = (x.long() & MASK for x in sampler[:2])
+        if lo.dim() == 1:
+            lo, hi = lo[:, None], hi[:, None]
     if flight is not None:
         _check_flight(flight, r)
         fbuf, fcnt = flight[0].clone(), flight[1][0]
@@ -369,8 +438,15 @@ def event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish: Sequence[
         if flight is not None:
             pmin_per = groups.arrived_min(t)
         found_due = active & (t == nbt)
-        wq, dt = rows[s, 0], rows[s, 1]
-        ow = (midx == wq) & found_due  # (M, R)
+        if sampler is None:
+            wq, dt = rows[s, 0], rows[s, 1]
+            ow = (midx == wq) & found_due  # (M, R)
+        else:
+            # The raw words: miner m wins when lo[m] <= w < hi[m], the last
+            # interval closed.
+            bw = rows[s, 0].long() & MASK
+            ow = (bw >= lo) & ((bw < hi) | (midx == m - 1)) & found_due
+            dt = interval_from_bits(rows[s, 1].long() & MASK, sampler.mean)
         owi = ow.to(I32)
 
         # FoundBlock: the own-count vector and one arrival group move. A
@@ -423,24 +499,37 @@ def event_loop_chunk_plain(rows, cap, prop, leaves, counters, selfish: Sequence[
             npriv = torch.where(can_reveal, npriv - reveal_n, npriv)
 
         # Reorg: adopt when strictly longer than the whole local chain;
-        # gather reads of b's rows with the diagonal corrections.
+        # reads of b's rows (gathers, or contractions with the one-hot of
+        # b) with the diagonal corrections.
         adopt = (best_h > height) & do
-        unpub_b = take(height) - best_h
-        cnt_b = take(ocnt)
-        oc_b = ocp.gather(1, b.view(1, 1, r).expand(m, 1, r))[:, 0]  # own_cp[:, b]
-        oc_b = oc_b + b32 * (cnt_b - take(oc_b))
+        if onehot:
+            at_b = lambda arr: (arr * b32).sum(0, dtype=I32)  # arr[b] as a contraction
+            oc_b = (ocp * b32[None]).sum(1, dtype=I32)  # own_cp[:, b]
+            row_b = (oin * b32[:, None]).sum(0, dtype=I32)  # own_in[b, :]
+        else:
+            at_b = take
+            oc_b = ocp.gather(1, b.view(1, 1, r).expand(m, 1, r))[:, 0]  # own_cp[:, b]
+            row_b = oin.gather(0, b.view(1, 1, r).expand(1, m, r))[0]  # own_in[b, :]
+        unpub_b = at_b(height) - best_h
+        cnt_b = at_b(ocnt)
+        oc_b = oc_b + b32 * (cnt_b - at_b(oc_b))
         d_stale = torch.where(adopt, ocnt - oc_b, 0)
         stale = stale + d_stale
-        row_b = oin.gather(0, b.view(1, 1, r).expand(1, m, r))[0]  # own_in[b, :]
-        row_b = row_b + b32 * (cnt_b - take(row_b))
+        row_b = row_b + b32 * (cnt_b - at_b(row_b))
         row_bpub = row_b - unpub_b * b32
         if exact:
             # cpb[j, o] = cp[b, j, o]; its j == b row is stale but every
             # consumer masks it out. Factored update (tpusim.state.notify):
             #   Y[j] = (a_j | b_j) ? b_pub : cpb[j];  W[i] = b_i ? b_pub : cpb[i]
             #   cp[i, j] = a_i ? Y[j] : (a_j ? W[i] : cp[i, j])
-            cpb = cp.gather(0, b.view(1, 1, 1, r).expand(1, m, m, r))[0].to(I32)  # (M, M, R)
-            cpb_diag = cpb[diag, diag]  # (M, R) cp[b, i, i]
+            if onehot:
+                # Contractions in the count type: one term is nonzero.
+                bc = onehot_b.to(cp.dtype)[:, None, None]
+                cpb = (cp * bc).sum(0, dtype=cp.dtype).to(I32)  # (M, M, R)
+                cpb_diag = torch.where(eye, cpb, 0).sum(1, dtype=I32)  # (M, R) cp[b, i, i]
+            else:
+                cpb = cp.gather(0, b.view(1, 1, 1, r).expand(1, m, m, r))[0].to(I32)
+                cpb_diag = cpb[diag, diag]  # (M, R) cp[b, i, i]
             y_val = torch.where((adopt | onehot_b)[:, None], row_bpub[None], cpb)
             w_val = torch.where(onehot_b[:, None], row_bpub[None], cpb)
             cp = torch.where(
@@ -630,3 +719,46 @@ class _Groups:
 
     def stacked(self):
         return self.garr, self.gcnt
+
+
+def map_raw_words(words: torch.Tensor, sampler: Sampler) -> torch.Tensor:
+    """The raw-word variants' mapping alone (K5a's device functions, built
+    into every raw-word library): ``words`` int32 bit patterns (2, N), the
+    winner words then the interval words, to int32 (2, N), the winners then
+    the intervals, for one roster's ``sampler``. Launches the mapping kernel
+    for CUDA tensors and takes :func:`map_raw_words_plain` only for tensors
+    on the CPU."""
+    devices = {x.device for x in (words, *sampler)}
+    if len(devices) != 1:
+        raise ValueError(f"map_raw_words: tensors on several devices {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return map_raw_words_plain(words, sampler)
+    if device.type != "cuda":
+        raise ValueError(f"map_raw_words runs on CUDA or the CPU, not {device}")
+    from .csrc.build import MAP_ENTRY, NARROW_MAX_MINERS as narrow, load_library
+
+    m, n = sampler.lo.shape[0], words.shape[1]
+    _check("words", words, (2, n), (I32,))
+    _check_sampler(sampler, m, n, packed=False)
+    out = torch.empty_like(words)
+    kernel = "event_loop_fast" + "_wide" * (m > narrow) + "_raw"
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        lib = load_library(kernel, m, 2)
+        err = getattr(lib, MAP_ENTRY[0])(words.data_ptr(), *[x.data_ptr() for x in sampler], n,
+                                         out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(
+            f"map_raw_words kernel launch failed: {lib.tpusim_cuda_error_string(err).decode()}")
+    launches["map_raw_words"] += 1
+    return out
+
+
+def map_raw_words_plain(words: torch.Tensor, sampler: Sampler) -> torch.Tensor:
+    """The plain PyTorch version of :func:`map_raw_words`: the sampler's own
+    mappings, ``sampling.winners_from_bits`` over the thresholds (``hi``)
+    and ``sampling.interval_from_bits``."""
+    w = words.long() & MASK
+    return torch.stack([winners_from_bits(w[0], sampler.hi.long() & MASK),
+                        interval_from_bits(w[1], sampler.mean)])

@@ -26,7 +26,7 @@ import torch
 
 __all__ = [
     "MASK", "threefry2x32", "key", "fold_in", "bits", "make_run_keys",
-    "init_words", "chunk_words",
+    "init_words", "chunk_words", "to_int32",
 ]
 
 MASK = 0xFFFFFFFF
@@ -95,3 +95,11 @@ def chunk_words(keys: torch.Tensor, chunk_idx: int, steps: int) -> torch.Tensor:
     (steps, 2))`` for every run, runs-last int64 ``(steps, 2, R)``: row
     ``[s, 0]`` is step s's winner word, ``[s, 1]`` its interval word."""
     return bits(fold_in(keys, 1 + chunk_idx), 2 * steps).reshape(steps, 2, -1)
+
+
+def to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words holding uint32 values -> int32 tensors of the same bit
+    patterns (the raw-word kernels read them back as uint32): bit 31 is
+    sign-extended by the flip-and-subtract identity, so every value is in
+    int32's range before the cast."""
+    return (((words & MASK) ^ 0x80000000) - 0x80000000).to(torch.int32)
