@@ -32,7 +32,10 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    runs with ragged chunk ends in several state and roster variants, a
    256-run x 10-day batch key for key, and one chunk at the main path's
    shape (8192 runs x 1856 steps; for K2 on the selfish and on an honest
-   roster), timed, its bound counted by replaying it one step per launch;
+   roster), its plain version on the chunk's first 1,024 runs (``PLAIN_RUNS``,
+   as for every main-path chunk below; the kernel on those runs is also held
+   against its own full-width result), timed, its bound counted by
+   replaying it one step per launch;
    then a small batch on the card against the same batch on the CPU, key
    for key, per mode; then the same for the flight-recorder kernels K3f and
    K3x (every state leaf, counter and ring leaf, max |err| 0): one chunk at
@@ -63,7 +66,7 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    40 % selfish miner, 40 honest miners: no miner set in a 32-bit mask),
    int16 and int32, with the ring, packed (four 32-miner lane groups) and
    at K = 4: one chunk at 1000 runs each, the main path's chunks (path
-   W1's roster, K1w; hetero32, K2w, its plain version on 1,024 runs, the
+   W1's roster, K1w; hetero32, K2w, the
    cp update's accesses counted as device-memory bytes once cp passes the
    L2), timed and counted, and a 2-day batch of each roster (64 runs; hetero32 16) on
    the card against the CPU; then the raw-word (K5a) and one-hot (K5b)
@@ -180,6 +183,11 @@ H32 = (14, 11, 9, 8, 6, 5, 4, 3) + (2,) * 16 + (1,) * 8
 CMP_DAYS, BATCH_DAYS = 2, 5
 #: Path W2's duration, cut from hetero32's one year.
 W2_DAYS = 30
+#: A main-path chunk's (and a K6 shard call's) plain version runs on this
+#: many of its 8,192 runs: the plain versions take seconds of host-bound
+#: torch ops a chunk, and the kernel on those runs is also held against its
+#: own full-width result.
+PLAIN_RUNS = 1024
 
 
 def fail(msg: str) -> None:
@@ -268,6 +276,17 @@ def onehot_ops(m: int, adopt_steps: int, contraction_loads: int) -> int:
     own_cp column and own_in row) as contractions of M multiply-adds, two
     operations each; and two per contraction load of cp."""
     return adopt_steps * (2 * m + 2) * 2 * m + 2 * contraction_loads
+
+
+def narrow_exact_smem_bytes(m: int, count_bytes: int) -> int:
+    """Dynamic shared memory of one block of the narrow exact kernel
+    (csrc/event_loop_exact.cu, ``Tables``): 8 runs, each with b's published
+    count row and own_cp, own_in and cp in the count type, b_pub and each cp
+    row padded to 16 bytes."""
+    vec = 16 // count_bytes
+    row = -(-m // vec) * vec
+    cp_at = -(-(row + 2 * m * m) // vec) * vec
+    return 8 * (cp_at + m * m * row) * count_bytes
 
 
 def micro_ops(op: str, r: int, iters: int) -> int:
@@ -514,10 +533,14 @@ def main() -> None:
     for (name, m, k), (path, secs, log) in built.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        smem = ""
+        if name.startswith("event_loop_exact") and "_wide" not in name:
+            smem = (f"; shared memory a block {narrow_exact_smem_bytes(m, 2)} B (int16 counts), "
+                    f"{narrow_exact_smem_bytes(m, 4)} B (int32)")
         print(f"[build] {name} M = {m} K = {k} -> {path.name} "
               f"({secs:.1f} s compiling): {max(regs, default=0)} registers, spill stores "
               f"{min(spills, default=0)}-{max(spills, default=0)} B over {len(regs)} "
-              f"instantiations")
+              f"instantiations{smem}")
         record[f"build_{name}_m{m}_k{k}"] = dict(s=secs, registers=regs, spill_stores=spills)
     print(f"[build] {len(built)} libraries in {record['build_s']:.1f} s in all, one nvcc per "
           f"library in parallel")
@@ -635,17 +658,32 @@ def main() -> None:
               f"({int(out_k['tele_chunks_max'])} chunks"
               + (f", ring capacity {capacity}" if capacity else "") + ")")
 
-    def main_chunk(kernel: str, me, label: str, plain_runs: int | None = None,
-                   repeat: int = 5) -> dict:
+    def held_on_first_runs(kernel: str, args, kw, got, runs: int, what: str):
+        """The plain version on the first :data:`PLAIN_RUNS` of a chunk's
+        ``runs`` runs, held against the kernel on the same runs and against
+        the kernel's full-width result ``got`` cut to them. Returns (max
+        |err|, the plain version's ms for those runs)."""
+        cut = lambda x: x[..., :PLAIN_RUNS].contiguous() if torch.is_tensor(x) and (
+            x.shape[-1] == runs) else x
+        sub = tuple(tuple(cut(x) for x in a) if isinstance(a, tuple) else cut(a) for a in args)
+        kw_sub = dict(kw, sampler=kw["sampler"] and type(kw["sampler"])(
+            *(cut(x) for x in kw["sampler"])))
+        want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*sub, **kw_sub))
+        err = max_abs_err(event_loop.event_loop_chunk(*sub, **kw_sub), want,
+                          f"{kernel} {what}, first {PLAIN_RUNS} runs")
+        err = max(err, max_abs_err(tuple(tuple(cut(x) for x in part) if part else part
+                                         for part in got), want,
+                                   f"{kernel} {what} against its own first {PLAIN_RUNS} runs"))
+        return err, plain_ms
+
+    def main_chunk(kernel: str, me, label: str, repeat: int = 5) -> dict:
         """One busy chunk at the main path's shape on engine ``me`` (chunk
-        1, from the state after chunk 0): compared, timed, and replayed one
-        step per launch to count its finds, adopting (miner, event) pairs
-        and cp accesses for the bound; with the flight recorder also its
-        recorded rows and the steps in which some miner adopts. With
-        ``plain_runs`` the plain version runs on the chunk's first
-        ``plain_runs`` runs only (its (M, M, M, R) temporaries at M = 32 and
-        8,192 runs would be 1 GiB each), held against the kernel on the same
-        runs, and its time is for that many."""
+        1, from the state after chunk 0): its plain version on the chunk's
+        first :data:`PLAIN_RUNS` runs (:func:`held_on_first_runs`; its time
+        is for that many), timed, and replayed one step per launch to count
+        its finds, adopting (miner, event) pairs and cp accesses for the
+        bound; with the flight recorder also its recorded rows and the steps
+        in which some miner adopts."""
         runs, m = me.config.batch_size, me.n_miners
         mkeys = me.make_keys(0, runs)
         mcap = torch.full((runs,), 2**29, dtype=torch.int32, device=dev)
@@ -654,24 +692,7 @@ def main() -> None:
         args, kw = chunk_args(me, mkeys, state, aux, 1, mcap), me.loop_options()
         rows, _, prop, leaves, counters, selfish, fl = args
         got = event_loop.event_loop_chunk(*args, **kw)
-        if plain_runs is None:
-            want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*args, **kw))
-            err = max_abs_err(got, want, f"{kernel} main-path chunk")
-        else:
-            cut = lambda x: x[..., :plain_runs].contiguous() if torch.is_tensor(x) and (
-                x.shape[-1] == runs) else x
-            sub = tuple(tuple(cut(x) for x in a) if isinstance(a, tuple) else cut(a)
-                        for a in args)
-            kw_sub = dict(kw, sampler=kw["sampler"] and type(kw["sampler"])(
-                *(cut(x) for x in kw["sampler"])))
-            want, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*sub, **kw_sub))
-            err = max_abs_err(event_loop.event_loop_chunk(*sub, **kw_sub), want,
-                              f"{kernel} main-path chunk, first {plain_runs} runs")
-            err = max(err, max_abs_err(tuple(tuple(cut(x) for x in part) if part else part
-                                             for part in got), want,
-                                       f"{kernel} main-path chunk against its own first "
-                                       f"{plain_runs} runs"))
-        del want
+        err, plain_ms = held_on_first_runs(kernel, args, kw, got, runs, "main-path chunk")
         kernel_ms = timed(torch, lambda: event_loop.event_loop_chunk(*args, **kw), repeat=repeat)
         active = int((got[1][2].long() - counters[2].long()).sum())
         h_idx = event_loop.EXACT_LEAVES.index("height") if me.exact else FAST_HEIGHT
@@ -736,7 +757,7 @@ def main() -> None:
                      f"{adopt_steps} adopting events" if fl else "")
         if kw["onehot"]:
             ring_note += f", {adopt_steps} adopting events, {contraction_loads} contraction loads"
-        plain_note = f" on its first {plain_runs} runs" if plain_runs else ""
+        plain_note = f" on its first {PLAIN_RUNS} runs"
         print(f"[{label}] main-path chunk ({runs} runs x {me.chunk_steps} steps, M = {m}, "
               f"K = {k}, {active} active events, {finds} finds, {adopts} adopting pairs, "
               f"{cp_accesses} cp accesses{ring_note}): kernel {kernel_ms:.3f} "
@@ -751,7 +772,7 @@ def main() -> None:
               f"{sampler_ms:.3f} ms + kernel {kernel_ms:.3f} ms + layout and re-base "
               f"{chunk_ms - sampler_ms - kernel_ms:.3f} ms; on {card}")
         return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                    plain_runs=plain_runs or runs, bound_ms=bound_ms,
+                    plain_runs=PLAIN_RUNS, bound_ms=bound_ms,
                     bound_by=bound_by, chunk_active_events=active, chunk_finds=finds,
                     chunk_adopting_pairs=adopts, chunk_cp_accesses=cp_accesses,
                     chunk_adopting_events=adopt_steps, chunk_rows_recorded=recorded,
@@ -1060,12 +1081,12 @@ def main() -> None:
         compare_variants("event_loop_exact_wide", (("auto", True, hetero32.network),), "auto",
                          slots=4))
     # One busy chunk of each at 8,192 runs x 1,856 steps: path W1's roster
-    # (K1w) and hetero32 (K2w), the latter's plain version on 1,024 runs.
+    # (K1w) and hetero32 (K2w).
     stats["event_loop_fast_wide"] = main_chunk(
         "event_loop_fast_wide", Engine(SimConfig(network=w1_net), dev), "event_loop_fast_wide W1")
     stats["event_loop_exact_wide"] = main_chunk(
         "event_loop_exact_wide", Engine(hetero32, dev), "event_loop_exact_wide hetero32",
-        plain_runs=1024, repeat=2)
+        repeat=2)
     stats["event_loop_fast_wide"]["max_abs_err"] = max(
         err1w, stats["event_loop_fast_wide"]["max_abs_err"])
     stats["event_loop_exact_wide"]["max_abs_err"] = max(
@@ -1296,9 +1317,9 @@ def main() -> None:
                                          for a, kw in shard_args], repeat=3) / k6_shards
         a0, kw0 = shard_args[0]
         got0 = event_loop.event_loop_chunk(*a0, **kw0)
-        want0, plain_ms = timed_once(torch, lambda: event_loop_chunk_plain(*a0, **kw0))
-        err = max_abs_err(got0, want0, f"K6 {roster}: shard 0's chunk")
-        del loops, shard_args, got0, want0
+        err, plain_ms = held_on_first_runs(kernel, a0, kw0, got0, runs // k6_shards,
+                                           f"K6 {roster}: shard 0's chunk")
+        del loops, shard_args, got0
         years = runs * base.duration_ms / (365.2425 * 86_400_000)
         k6_years[roster] = {1: years / one_s}
         name = f"k6_{kernel}_sharded"

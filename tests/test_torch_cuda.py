@@ -374,6 +374,75 @@ def test_group_slots_flight_kernel_chunk_equals_plain(cuda):
     _compare_chunk(eng, keys, state, aux, _ragged(cap), "event_loop_exact_flight")
 
 
+#: Four miners of equal hashrate with 1 ms delays and a 200 ms interval:
+#: equal best published heights and first-seen tips in every run, finds
+#: that collide, and adopters popping equally deep (miner 0 selfish).
+TIES = NetworkConfig(
+    miners=tuple(MinerConfig(hashrate_pct=25, propagation_ms=1, selfish=i == 0)
+                 for i in range(4)),
+    block_interval_s=0.2,
+)
+#: The narrow exact kernel's variants (K2s, K2h, K3x, K4x with the ring,
+#: K5c, K5a, K5b): network (or "packed" for the selfish lane groups), group
+#: slots, ring capacity and config options.
+NARROW_EXACT_CASES = {
+    "selfish": (reference_selfish_network(), 2, 0, {}),
+    "honest": (default_network(10_000), 2, 0, dict(state_dtype="int32", count_rebase=False)),
+    "ties-ring": (TIES, 2, 64, {}),
+    "selfish-k4-ring": (reference_selfish_network(), 4, 64, {}),
+    "crowded-k3": (CROWDED, 3, 0, {}),
+    "packed-ring": ("packed", 2, 64, {}),
+    "raw": (reference_selfish_network(), 2, 0, dict(rng_batch=False)),
+    "onehot": (TIES, 2, 0, dict(consensus_gather=False)),
+}
+
+
+@pytest.fixture(scope="module")
+def narrow_exact_libraries():
+    """The libraries of NARROW_EXACT_CASES, built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from tpusim_torch.csrc import build
+
+    build.build([("event_loop_exact", 9, 2), ("event_loop_exact", 4, 2),
+                 ("event_loop_exact_flight", 4, 2), ("event_loop_exact_flight", 9, 4),
+                 ("event_loop_exact", 4, 3), ("event_loop_exact_packed_flight", 9, 2),
+                 ("event_loop_exact_raw", 9, 2), ("event_loop_exact_onehot", 4, 2)])
+
+
+@pytest.mark.parametrize("runs", [1, 3, 17, 1000])
+@pytest.mark.parametrize("case", list(NARROW_EXACT_CASES))
+def test_narrow_exact_kernel_at_any_run_count(cuda, narrow_exact_libraries, case, runs):
+    """The narrow exact kernel (a 16-lane group a run, 8 runs a block) at
+    run counts below one block, of a partial last block and of many blocks,
+    every run's chunk end somewhere else (stopped at once, within the chunk,
+    or never): every leaf equal to the plain version's."""
+    network, k, capacity, options = NARROW_EXACT_CASES[case]
+    if network == "packed":
+        cfgs = _lane_configs("selfish", duration_ms=2 * DAY, flight_capacity=capacity,
+                             chunk_steps=320)
+        cfgs = cfgs[:min(runs, len(cfgs))]
+        counts = [runs // len(cfgs) + (i < runs % len(cfgs)) for i in range(len(cfgs))]
+        eng = _packed_engine(cfgs, counts, event_loop=event_loop_chunk_plain)
+        keys = eng.make_keys(0, runs)
+        state, aux = eng._init(keys)
+        cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
+        state, aux, _ = eng._chunk(state, aux, cap, keys, 0)
+        kernel = "event_loop_exact_packed_flight"
+    else:
+        cfg = SimConfig(network=network, duration_ms=2 * DAY, mode="exact", group_slots=k,
+                        flight_capacity=capacity, chunk_steps=320, **options)
+        eng, keys, state, aux, cap = _mid_run(cfg, runs, 1)
+        kernel = ("event_loop_exact" + ("_raw" if "rng_batch" in options else "")
+                  + ("_onehot" if "consensus_gather" in options else "")
+                  + ("_flight" if capacity else ""))
+    i = torch.arange(runs, device="cuda", dtype=torch.int32)
+    cap = torch.where(i % 3 == 1, (i + 1) * 1600, cap)  # early in the chunk
+    cap = torch.where(i % 7 == 2, (i + 1) * (2**28 // runs), cap)  # anywhere in it
+    cap = torch.where(i % 5 == 4, 0, cap).to(torch.int32)  # at once
+    _compare_chunk(eng, keys, state, aux, cap, kernel)
+
+
 def test_group_slots_run_batch_card_equals_cpu(cuda):
     cfg = SimConfig(network=reference_selfish_network(), duration_ms=2 * DAY, runs=256,
                     batch_size=256, seed=3, group_slots=4)
@@ -596,8 +665,10 @@ def test_micro_kernel_equals_plain(cuda, knob_libraries, op):
 
 #: Digests of the SASS (``cuobjdump -sass``, addresses, encodings and the
 #: path-derived hash in anonymous-namespace names stripped) of the
-#: libraries that predate the raw-word and one-hot variants, as the sources
-#: before them compiled, for one nvcc release.
+#: libraries that predate the raw-word and one-hot variants, for one nvcc
+#: release: the fast and wide ones as the sources before those variants
+#: compiled them, the narrow exact ones as the group-per-run exact kernel
+#: compiles them.
 SASS_PIN = Path(__file__).with_name("torch_sass_digests.json")
 
 
@@ -623,7 +694,10 @@ def _sass_digest(path) -> str:
 
 def test_existing_libraries_keep_their_sass(cuda):
     """The 39 libraries of the variants that predate K5a and K5b compile to
-    the instructions they compiled to before those variants were added."""
+    their pinned instructions: the 24 fast and wide libraries to what they
+    compiled to before those variants were added (no later change to the
+    exact kernel's narrow body or to the shared header moved them), the 15
+    narrow exact ones to the kernel that runs a 16-lane group a run."""
     import subprocess
 
     from tpusim_torch.csrc import build

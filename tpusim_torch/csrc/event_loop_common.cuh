@@ -628,6 +628,74 @@ struct WideGroups {
   }
 };
 
+// The narrow exact kernel's run group (event_loop_exact.cu): kGroupLanes
+// lanes of one warp own one run, lane m its miner m, so a warp holds two
+// runs. Every collective names the group's own lanes: the two runs of a
+// warp leave their step loops at different steps, and a block's last
+// groups may hold no run at all.
+constexpr int kGroupLanes = 16;
+
+struct RunGroup {
+  unsigned mask;  // the group's lanes within its warp
+  int shift;      // the group's first lane within its warp: 0 or 16
+  int lane;       // this thread's lane within the group: its miner
+
+  __device__ __forceinline__ explicit RunGroup(int thread)
+      : mask(0xFFFFu << (thread & 16)), shift(thread & 16), lane(thread & 15) {}
+
+  __device__ __forceinline__ int max(int v) const { return __reduce_max_sync(mask, v); }
+  __device__ __forceinline__ int min(int v) const { return __reduce_min_sync(mask, v); }
+  __device__ __forceinline__ int add(int v) const { return __reduce_add_sync(mask, v); }
+  // Bit m set where lane m's predicate holds.
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return (__ballot_sync(mask, p) >> shift) & 0xFFFFu;
+  }
+  // The lowest lane whose predicate holds (-1 if none).
+  __device__ __forceinline__ int lowest(bool p) const { return __ffs(ballot(p)) - 1; }
+  // Lane src's v.
+  __device__ __forceinline__ int from(int v, int src) const {
+    return __shfl_sync(mask, v, src, kGroupLanes);
+  }
+  // Orders every lane's shared-memory writes before any lane's later reads.
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+// One miner's split slots (K = 2) for a run group's lane: the narrow
+// kernels' flush (groups arrived by t_flush leave, the last one's arrival
+// becomes `base`; returns the count still unarrived), the earliest pending
+// arrival after t and the earliest group arrived by t (kInf if none).
+__device__ __forceinline__ int flush2(int& a0, int& a1, int& c0, int& c1, int t_flush,
+                                      int& base) {
+  const bool f0 = a0 <= t_flush, f1 = a1 <= t_flush;
+  base = f1 ? a1 : (f0 ? a0 : base);
+  const int na0 = f1 ? kInf : (f0 ? a1 : a0);
+  const int na1 = f0 ? kInf : a1;
+  const int nc0 = f1 ? 0 : (f0 ? c1 : c0);
+  const int nc1 = f0 ? 0 : c1;
+  a0 = na0;
+  a1 = na1;
+  c0 = nc0;
+  c1 = nc1;
+  return nc0 + nc1;
+}
+
+__device__ __forceinline__ int pending2(int a0, int a1, int t) {
+  return min(a0 > t ? a0 : kInf, a1 > t ? a1 : kInf);
+}
+
+__device__ __forceinline__ int arrived2(int a0, int a1, int t) {
+  return min(a0 <= t ? a0 : kInf, a1 <= t ? a1 : kInf);
+}
+
+// arrived2 over one miner's K >= 3 slots.
+template <int K>
+__device__ __forceinline__ int arrived_k(const int (&ga)[K], int t) {
+  int e = kInf;
+#pragma unroll
+  for (int k = 0; k < K; ++k) e = min(e, ga[k] <= t ? ga[k] : kInf);
+  return e;
+}
+
 }  // namespace
 
 #if TPUSIM_RAW_WORDS

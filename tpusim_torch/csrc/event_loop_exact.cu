@@ -10,20 +10,37 @@
 // advance, plus the SimCounters updates. The plain PyTorch version of the
 // same function is tpusim_torch/event_loop.py::event_loop_chunk_plain.
 //
-// Design. As in event_loop.cu, one thread owns one run: the per-miner leaves
-// and the (M, M) own_cp/own_in tables sit in registers (spilling to local
-// memory) for the whole chunk, b-indexed reads are unrolled selects over the
-// compile-time M, and every leaf is runs-last so a warp's accesses coalesce.
-// The (M, M, M) cp tensor (729 counts a run at M = 9) cannot live in
-// registers. It stays in the output buffer in global memory, runs-last
-// (((i * M + j) * M + o) * R + r): each thread copies its run's entries from
-// the input once at entry, as the Pallas kernel seeds its outputs, and then
-// reads and writes them in place, only on events where some miner adopts.
-// At R = 8192 and int16 counts the whole tensor is 11.9 MB, inside the
-// H100's 50 MB L2. The update is done in place safely: it reads only
-// cp[b, p, :] planes of miners p that do not adopt, and writes only rows
-// cp[i, :, :] of adopters i and columns cp[:, j, :] of adopters j; b itself
-// never adopts (its published height is the best).
+// Design (rosters of up to 16 miners). A group of 16 lanes of one warp owns
+// one run, lane m its miner m, so a warp holds two runs and a 128-thread
+// block eight; at R = 8192 that is 1,024 blocks, about 8 an SM, all resident
+// in one wave while a thread takes at most 64 registers. Lane m keeps miner
+// m's leaves in registers (height, npriv, stale, base, its arrival-group
+// slots, own count, stale_by_miner, delay, selfish flag); lanes M .. 15 own no
+// miner and hold empty slots. Every lane keeps the run's scalars (t, nbt,
+// bhp, the counters), lane k < 8 its bucket k of rdh, lane 0 the flight
+// ring's cursor. What was a loop over miners is a reduction over the group,
+// with the group's own mask (the two runs of a warp leave their loops at
+// different steps): the best published height a max, the first-seen tip
+// among the best a min, b the lowest such lane by ballot, the cut-through a
+// min, the adopters a ballot, the flight row's deepest adopter a max and the
+// lowest such lane; a read of b's scalar is a shuffle from lane b.
+//
+// A run's tables live in shared memory for the chunk, in the count type:
+// own_cp (M, M), own_in (M, M), cp (M, M, M) with each row cp[i, j, :]
+// padded to 16 bytes, and b's published count row b_pub (23,680 bytes a
+// block at M = 9 with int16 counts; 36,736 with int32, which leaves room for
+// 6 blocks an SM, two waves at R = 8192). The block copies them in at
+// entry and out at exit, consecutive threads on consecutive runs of the
+// runs-last leaves (((i * M + j) * M + o) * R + r). Lane m reads and writes
+// row m of own_cp and column m of own_in, so b's column of own_cp and b's row
+// of own_in at miner m are lane m's own loads. On an adopting event each lane
+// writes its b_pub entry, then the group's lanes share the pairs (i, j) with
+// an adopter, each a row of M counts copied as 16-byte words: b_pub, or the
+// row cp[b, p, :] of a miner p that neither adopts nor is b. The update is
+// done in place safely: it reads only the rows cp[b, p, :] of such p, and
+// writes only rows cp[i, :, :] of adopters i and columns cp[:, j, :] of
+// adopters j; b itself never adopts (its published height is the best). A
+// __syncwarp of the group orders each event's writes before the next reads.
 //
 // What bounds it. Per busy chunk at R = 8192 and 1856 steps the function
 // must read the rows (122 MB) and read and write the state (about 2 KB a
@@ -33,11 +50,12 @@
 // and own_in. An event with A adopters must store the adopters' cp rows and
 // their columns in the other rows (A M^2 + (M - A) A M entries) and load
 // only the M - A - 1 rows cp[b, p, :] it copies (the rest is b's published
-// count row, already in registers). chip_smoke.py counts the adopters of
-// every event of a chunk by replay and takes the larger of the byte and the
-// operation bound. A thread walks its events one after another, so in
-// practice the latency of each dependent operation and of the cp accesses
-// sets the time.
+// count row). chip_smoke.py counts the adopters of every event of a chunk by
+// replay and takes the larger of the byte and the operation bound. In
+// practice the card's instruction issue bounds it: every lane of a group
+// executes the event's whole sequence, reductions included, and on an
+// adopting event the row copies (6 pairs a lane at M = 9); the step's row is
+// loaded a step ahead, so its latency overlaps the step before.
 //
 // Counts are computed in int32 and stored in the leaf's type: every count
 // stays within SimConfig.count_bound, so the result is that of the
@@ -55,9 +73,9 @@
 // h_base, and the time pair is (base_hi, base_lo + t), un-normalized, as
 // the reference stores it. The capacity C is a runtime argument. The
 // wrapper copies the input ring to the output once per chunk (about 201 MB
-// each way at C = 1024 and R = 8192), as this kernel copies cp, and the
-// kernel writes only the rows it records, each thread its own runs-last
-// column. What bounds it: K2's operations plus about 4 M a step for the
+// each way at C = 1024 and R = 8192), and the kernel writes only the rows
+// it records, lane 0 of a run's group into its run's runs-last column. What
+// bounds it: K2's operations plus about 4 M a step for the
 // entry-slot minimum and its owner and 3 M an adopting step for the deepest
 // adopter, and K2's bytes plus the ring read and written once;
 // chip_smoke.py counts both from the chunk it times. FLIGHT = false
@@ -71,10 +89,10 @@
 // launch, each run with its own point's roster. The per-run winner
 // thresholds and mean interval stay in the sampler's torch ops, as in the
 // reference; the kernel takes per run the propagation delays prop (M, R)
-// and the selfish flags selfish_in (M, R), both int32 runs-last. Each thread
-// loads its run's delays once at entry and folds its run's flags into the
-// bit mask that the uniform variants take as an argument, so the event loop
-// is K2's. SELFISH stays a template choice, uniform per pack (the planner
+// and the selfish flags selfish_in (M, R), both int32 runs-last. Lane m
+// loads its miner's delay and flag of its run, prop_in[m * R + r] and
+// selfish_in[m * R + r], once at entry, where the uniform variants take
+// entry m of the delays and bit m of the mask, so the event loop is K2's. SELFISH stays a template choice, uniform per pack (the planner
 // keys packs on whether any miner is selfish); a run whose flags are all
 // honest takes no selfish branch under SELFISH = true and gives the honest
 // result. What bounds it: K2's operations, and K2's bytes plus the two
@@ -89,11 +107,10 @@
 // adoption clear and cut-through at :535-539), which the reference's K = 2
 // split slots route around. A selfish reveal pushes its whole burst as one
 // merged group through the same push (:413-420). The build passes
-// -DTPUSIM_GROUP_SLOTS=<K>. Each thread keeps its run's buffer as int ga[M][K],
-// gc[M][K]; every slot index is a compile-time one after unrolling (a push, the
-// flush and the compaction are selects against the run's occupied and arrived
-// counts), so the buffer may live in registers, spilling to local memory where
-// they run out (36 slots of each at M = 9, K = 4). A push merges an equal
+// -DTPUSIM_GROUP_SLOTS=<K>. Lane m keeps its miner's buffer as int ga[K],
+// gc[K]; every slot index is a compile-time one after unrolling (a push, the
+// flush and the compaction are selects against the miner's occupied and
+// arrived counts), so the buffer lives in registers. A push merges an equal
 // arrival into the last occupied slot and, when all K are full, merges into
 // slot K - 1 and counts the overflow; a flush moves the tip of the arrived
 // prefix into base and shifts the rest left, kInf and 0 filling the tail. What
@@ -447,429 +464,486 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
   if (FLIGHT) fr.store(fl, r, R);
 }
 #else
+// The narrow kernel's block: kRunsPerBlock runs of kGroupLanes lanes each.
+constexpr int kRunsPerBlock = 8;
+constexpr int kBlockThreads = kRunsPerBlock * kGroupLanes;
+// At 8,192 runs, 1,024 blocks: one wave needs 8 blocks an SM, so at most 64
+// registers a thread. The flight libraries ask for that (their ring cursor
+// and row operands take more otherwise, and two waves); the others stay
+// within it unasked, and were slower asked.
+#if TPUSIM_FLIGHT
+#define TPUSIM_NARROW_BOUNDS __launch_bounds__(kBlockThreads, 8)
+#else
+#define TPUSIM_NARROW_BOUNDS __launch_bounds__(kBlockThreads)
+#endif
+
+// A run's region of shared memory, in the count type C: b's published count
+// row b_pub (M), own_cp (M, M), own_in (M, M) and cp (M, M, M), at these
+// offsets. b_pub and each row cp[i, j, :] take kRow counts, M rounded up to
+// 16 bytes, so a row is copied as kRow / kVec 16-byte words.
+template <int M, typename C>
+struct Tables {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(C));  // counts in 16 bytes
+  static constexpr int kRow = (M + kVec - 1) / kVec * kVec;
+  static constexpr int kBpub = 0, kOcp = kRow, kOin = kOcp + M * M;
+  static constexpr int kCp = (kOin + M * M + kVec - 1) / kVec * kVec;
+  static constexpr int kRegion = kCp + M * M * kRow;
+};
+
+// A block's dynamic shared memory: each run's region.
+template <int M, typename C>
+constexpr int narrow_smem_bytes() {
+  return kRunsPerBlock * Tables<M, C>::kRegion * static_cast<int>(sizeof(C));
+}
+
+// The n entries of a runs-last leaf, rows of M, for the block's runs r0 ..
+// r0 + kRunsPerBlock - 1, between the leaf and each run's table at offset
+// `at`, whose rows are `row` counts apart: consecutive threads take
+// consecutive runs of one entry, so a warp's accesses to the leaf fall in a
+// few 32-byte sectors.
+template <int M, typename C, bool IN>
+__device__ __forceinline__ void copy_table(C* regions, const void* in, void* out, int n, int at,
+                                           int row, int r0, int n_runs, long R) {
+  for (int i = threadIdx.x; i < kRunsPerBlock * n; i += kBlockThreads) {
+    const int q = i % kRunsPerBlock, e = i / kRunsPerBlock;
+    if (r0 + q >= n_runs) continue;
+    C& x = regions[q * Tables<M, C>::kRegion + at + e / M * row + e % M];
+    if (IN) {
+      x = static_cast<const C*>(in)[e * R + r0 + q];
+    } else {
+      static_cast<C*>(out)[e * R + r0 + q] = x;
+    }
+  }
+}
+
 // Leaf order: t, nbt, bhp, height, npriv, stale, base, garr, gcnt, cp, ocp,
 // oin, ocnt, ovf, then the counters mre, sev, act, sbm, rdh
 // (tpusim_torch.event_loop.EXACT_LEAVES). C is the count type, S the type
 // of `stale`; bit i of `selfish` marks miner i selfish, or with PACKED the
-// run's column of selfish_in (M, R) does.
+// run's column of selfish_in (M, R) does. One run a group of kGroupLanes
+// lanes, lane m its miner m's leaves in registers, the run's scalars in
+// every lane, the tables in shared memory (the file's header).
 template <int M, typename C, typename S, bool SELFISH, bool FLIGHT, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void TPUSIM_NARROW_BOUNDS
 event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
                         const int* __restrict__ prop_in, unsigned selfish, Leaves in,
                         Leaves out, int steps, int n_runs, Flight fl,
                         const int* __restrict__ selfish_in TPUSIM_SAMPLER_PARAM) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_runs) return;
+  using T = Tables<M, C>;
+  extern __shared__ __align__(16) unsigned char smem[];
   const long R = n_runs;
-  if (PACKED && SELFISH) {
-    selfish = 0;
-#pragma unroll
-    for (int m = 0; m < M; ++m) selfish |= selfish_in[m * R + r] ? 1u << m : 0u;
-  }
-  FlightRun fr;
-  if (FLIGHT) fr.load(fl, r, R);
+  const int r0 = blockIdx.x * kRunsPerBlock;
+  const int slot = threadIdx.x / kGroupLanes;  // the run's place in the block
+  const int r = r0 + slot;
+  const RunGroup g(threadIdx.x);
+  const int m = g.lane;
+  C* const regions = reinterpret_cast<C*>(smem);
+  C* const bpub = regions + slot * T::kRegion + T::kBpub;  // bpub[o]
+  C* const ocp = regions + slot * T::kRegion + T::kOcp;    // ocp[i * M + j]
+  C* const oin = regions + slot * T::kRegion + T::kOin;    // oin[i * M + j]
+  C* const cp = regions + slot * T::kRegion + T::kCp;      // cp[(i * M + j) * kRow + o]
+  copy_table<M, C, true>(regions, in.p[10], nullptr, M * M, T::kOcp, M, r0, n_runs, R);
+  copy_table<M, C, true>(regions, in.p[11], nullptr, M * M, T::kOin, M, r0, n_runs, R);
+  copy_table<M, C, true>(regions, in.p[9], nullptr, M * M * M, T::kCp, T::kRow, r0, n_runs, R);
+  __syncthreads();
 
-  int t = ld<int>(in.p[0], r);
-  int nbt = ld<int>(in.p[1], r);
-  int bhp = ld<C>(in.p[2], r);
-  int ovf = ld<int>(in.p[13], r);
-  int mre = ld<int>(in.p[14], r);
-  int sev = ld<int>(in.p[15], r);
-  int act = ld<int>(in.p[16], r);
-  const int cap = cap_in[r];
-  int height[M], npriv[M], stale[M], base[M], a0[M], a1[M], c0[M], c1[M], ocnt[M];
-  int prop[M], sbm[M], rdh[kBuckets];
-  int ocp[M][M], oin[M][M];
-  int ga[M][kGenSlots], gc[M][kGenSlots];  // the generic buffer (K >= 3)
+  if (r < n_runs) {
+    const bool own = m < M;  // lanes M .. kGroupLanes - 1 own no miner
+    // The run's scalars, the same in every lane.
+    int t = ld<int>(in.p[0], r);
+    int nbt = ld<int>(in.p[1], r);
+    int bhp = ld<C>(in.p[2], r);
+    int mre = ld<int>(in.p[14], r);
+    int sev = ld<int>(in.p[15], r);
+    int act = ld<int>(in.p[16], r);
+    const int cap = cap_in[r];
+    int ovf = 0;  // this lane's overflows; the run's are their sum
+    FlightRun fr;
+    if (FLIGHT && m == 0) fr.load(fl, r, R);
+    int rdh = m < kBuckets ? ld<int>(in.p[18], m * R + r) : 0;  // bucket m
+    // Miner m's leaves; a lane without a miner holds empty slots.
+    int height = 0, npriv = 0, stale = 0, base = 0, ocnt = 0, sbm = 0, prop = 0;
+    int a0 = kInf, a1 = kInf, c0 = 0, c1 = 0;
+    // The generic buffer (K >= 3; kGenSlots == kSlots there, and the K = 2
+    // build's generic statements, of extent 1, are discarded).
+    int ga[kGenSlots], gc[kGenSlots];
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    height[m] = ld<C>(in.p[3], m * R + r);
-    npriv[m] = ld<C>(in.p[4], m * R + r);
-    stale[m] = ld<S>(in.p[5], m * R + r);
-    base[m] = ld<int>(in.p[6], m * R + r);
-    if constexpr (kSlots == 2) {
-      a0[m] = ld<int>(in.p[7], (2 * m) * R + r);
-      a1[m] = ld<int>(in.p[7], (2 * m + 1) * R + r);
-      c0[m] = ld<C>(in.p[8], (2 * m) * R + r);
-      c1[m] = ld<C>(in.p[8], (2 * m + 1) * R + r);
-    } else {
+    for (int k = 0; k < kGenSlots; ++k) {
+      ga[k] = kInf;
+      gc[k] = 0;
+    }
+    bool sel = false;
+    if (own) {
+      height = ld<C>(in.p[3], m * R + r);
+      npriv = ld<C>(in.p[4], m * R + r);
+      stale = ld<S>(in.p[5], m * R + r);
+      base = ld<int>(in.p[6], m * R + r);
+      if constexpr (kSlots == 2) {
+        a0 = ld<int>(in.p[7], (2 * m) * R + r);
+        a1 = ld<int>(in.p[7], (2 * m + 1) * R + r);
+        c0 = ld<C>(in.p[8], (2 * m) * R + r);
+        c1 = ld<C>(in.p[8], (2 * m + 1) * R + r);
+      } else {
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        ga[m][k] = ld<int>(in.p[7], (m * kSlots + k) * R + r);
-        gc[m][k] = ld<C>(in.p[8], (m * kSlots + k) * R + r);
+        for (int k = 0; k < kSlots; ++k) {
+          ga[k] = ld<int>(in.p[7], (m * kSlots + k) * R + r);
+          gc[k] = ld<C>(in.p[8], (m * kSlots + k) * R + r);
+        }
       }
+      ocnt = ld<C>(in.p[12], m * R + r);
+      sbm = ld<int>(in.p[17], m * R + r);
+      prop = PACKED ? prop_in[m * R + r] : prop_in[m];
+      sel = SELFISH && (PACKED ? selfish_in[m * R + r] != 0 : ((selfish >> m) & 1u) != 0);
     }
+    const auto push = [&](int arrival, int count, bool d) {
+      if constexpr (kSlots == 2) {
+        ovf += push2(a0, a1, c0, c1, arrival, count, d);
+      } else {
+        ovf += push_k<kGenSlots>(ga, gc, arrival, count, d);
+      }
+    };
+    // cpb(b, j, o) = cp[b, j, o], the cp plane of b.
+#if TPUSIM_ONEHOT
+    // K5b: the contraction sum_p cp[p, j, o] * [p == b] over the M planes
+    // (pallas_engine.py:477-479), M loads where the gather loads one.
+    const auto cpb = [&](int b, int j, int o) {
+      int v = 0;
 #pragma unroll
-    for (int j = 0; j < M; ++j) {
-      ocp[m][j] = ld<C>(in.p[10], (m * M + j) * R + r);
-      oin[m][j] = ld<C>(in.p[11], (m * M + j) * R + r);
-    }
-    ocnt[m] = ld<C>(in.p[12], m * R + r);
-    sbm[m] = ld<int>(in.p[17], m * R + r);
-    prop[m] = PACKED ? prop_in[m * R + r] : prop_in[m];
-  }
-#pragma unroll
-  for (int k = 0; k < kBuckets; ++k) rdh[k] = ld<int>(in.p[18], k * R + r);
+      for (int p = 0; p < M; ++p) v += static_cast<int>(cp[(p * M + j) * T::kRow + o]) * (p == b);
+      return v;
+    };
+#else
+    const auto cpb = [&](int b, int j, int o) {
+      return static_cast<int>(cp[(b * M + j) * T::kRow + o]);
+    };
+#endif
 
-  // cp lives in the output buffer from here on; this run's column of it.
-  C* const cp = static_cast<C*>(out.p[9]) + r;
-  {
-    const C* const cp_in = static_cast<const C*>(in.p[9]) + r;
-#pragma unroll 8
-    for (int e = 0; e < M * M * M; ++e) cp[e * R] = cp_in[e * R];
-  }
-
-  for (int s = 0; s < steps; ++s) {
-    // An inactive step changes nothing, and a run stays inactive to the end
-    // of the chunk (t moves only while t < cap): stopping is exact.
-    if (!(t < cap)) break;
-    const bool found_due = (t == nbt);
+    // The step's row, loaded a step ahead: its latency overlaps the step
+    // before it.
+    int row0 = rows[r], row1 = rows[R + r];
+    for (int s = 0; s < steps; ++s) {
+      // An inactive step changes nothing, and a run stays inactive to the
+      // end of the chunk (t moves only while t < cap): stopping is exact.
+      if (!(t < cap)) break;
+      const int w0 = row0, w1 = row1;
+      if (s + 1 < steps) {
+        row0 = rows[(2L * s + 2) * R + r];
+        row1 = rows[(2L * s + 3) * R + r];
+      }
+      const bool found_due = (t == nbt);
 #if TPUSIM_RAW_WORDS
-    int wq = 0, dt = 0;
-    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
+      // draw_raw's mapping of the step's two raw words, on a find only.
+      int wq = 0, dt = 0;
+      if (found_due) {
+        const long off = PACKED ? r : 0, stride = PACKED ? R : 1;
+        wq = winner_from_word<M>(static_cast<unsigned>(w0), smp.lo + off, smp.hi + off, stride);
+        dt = interval_from_word(static_cast<unsigned>(w1), smp.mean[off]);
+      }
 #else
-    const int wq = rows[(2L * s) * R + r];
-    const int dt = rows[(2L * s + 1) * R + r];
+      const int wq = w0, dt = w1;
 #endif
-    int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
-    if constexpr (kSlots == 2) {
-      if (FLIGHT) earliest_arrived<M>(a0, a1, t, pmin, arr_miner);
-    } else {
-      if (FLIGHT) earliest_arrived_k<M, kSlots>(ga, t, pmin, arr_miner);
-    }
-
-    // FoundBlock. A selfish winner appends privately, except that a find on
-    // its one private block while the public chain is level with it (bhp)
-    // publishes both: the race, a group of count 2.
-    bool private_append = false, is_race = false;
-    if (SELFISH) {
-      bool sel_w = false;
-      int npriv_w = 0, height_w = 0;
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        if (found_due && m == wq) {
-          sel_w = (selfish >> m) & 1u;
-          npriv_w = npriv[m];
-          height_w = height[m];
-        }
-      }
-      is_race = sel_w && npriv_w == 1 && bhp == height_w;
-      private_append = sel_w && !is_race;
-    }
-    const int push_count = is_race ? 2 : 1;
-    int over = 0;
-    int w_idx = 0, h_found = 0;  // the find row's miner and height
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const bool ow = found_due && (m == wq);
-      if constexpr (kSlots == 2) {
-        over += push2(a0[m], a1[m], c0[m], c1[m], t + prop[m], push_count, ow && !private_append);
-      } else {
-        over += push_k<kSlots>(ga[m], gc[m], t + prop[m], push_count, ow && !private_append);
-      }
-      if (SELFISH && ow) npriv[m] += private_append ? 1 : (is_race ? -1 : 0);
-      ocnt[m] += ow;
-      height[m] += ow;
-      if (FLIGHT && ow) {
-        w_idx = m;
-        h_found = height[m];
-      }
-    }
-    ovf += over;
-    if (found_due) nbt = t + dt;
-
-    // Notify sweep, deferred while another find is due at this ms.
-    const bool notify = !(found_due && nbt == t);
-    const int t_flush = notify ? t : kNegGate;
-    int pub[M];
-    int best_h = -kInf;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      if constexpr (kSlots == 2) {
-        const bool f0 = a0[m] <= t_flush, f1 = a1[m] <= t_flush;
-        base[m] = f1 ? a1[m] : (f0 ? a0[m] : base[m]);
-        const int na0 = f1 ? kInf : (f0 ? a1[m] : a0[m]);
-        const int na1 = f0 ? kInf : a1[m];
-        const int nc0 = f1 ? 0 : (f0 ? c1[m] : c0[m]);
-        const int nc1 = f0 ? 0 : c1[m];
-        a0[m] = na0;
-        a1[m] = na1;
-        c0[m] = nc0;
-        c1[m] = nc1;
-        pub[m] = height[m] - (nc0 + nc1) - npriv[m];
-      } else {
-        pub[m] = height[m] - flush_k<kSlots>(ga[m], gc[m], t_flush, base[m]) - npriv[m];
-      }
-      best_h = max(best_h, pub[m]);
-    }
-    // Best published chain: first-seen tiebreak, then the lowest index.
-    int best_tip = kInf;
-#pragma unroll
-    for (int m = 0; m < M; ++m) best_tip = min(best_tip, pub[m] == best_h ? base[m] : kInf);
-    int b = M;
-#pragma unroll
-    for (int m = M - 1; m >= 0; --m) b = (pub[m] == best_h && base[m] == best_tip) ? m : b;
-
-    if (SELFISH) {
-      // Selfish reveal, before the reorg: publish enough private blocks to
-      // match or beat the best chain.
-      int over2 = 0;
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int lead = height[m] - best_h;
-        const int sc = npriv[m];
-        const bool reveal = ((selfish >> m) & 1u) && lead >= 0 && sc > lead && notify;
-        const int n = (sc > 1 && lead == 1) ? sc : sc - lead;
-        // The whole burst as one merged group (pallas_engine.py:413-420).
+      // The arrival row's operands, from the step-entry groups: the earliest
+      // arrived group and its owner, the lowest miner on ties (row 1 of a
+      // find step is the find's).
+      int pmin = kInf, arr_miner = 0;
+      if (FLIGHT && !found_due) {
+        int pm;
         if constexpr (kSlots == 2) {
-          over2 += push2(a0[m], a1[m], c0[m], c1[m], t + prop[m], n, reveal);
+          pm = arrived2(a0, a1, t);
         } else {
-          over2 += push_k<kSlots>(ga[m], gc[m], t + prop[m], n, reveal);
+          pm = arrived_k<kGenSlots>(ga, t);
         }
-        if (reveal) npriv[m] = sc - n;
+        pmin = g.min(pm);
+        arr_miner = g.lowest(pm == pmin);
       }
-      ovf += over2;
-    }
 
-    bool adopt[M];
-    unsigned adopt_mask = 0;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      adopt[m] = notify && best_h > height[m];
-      adopt_mask |= adopt[m] ? 1u << m : 0u;
-    }
-    int dmax = 0;
-    int miner2 = M, d2 = -1;  // the adoption row's miner: the deepest pop
-    if (adopt_mask) {
-      // Reads of b's rows, diagonals corrected from ocnt (the authority).
-#if TPUSIM_ONEHOT
-      const int unpub_b = contract_b<M>(height, b) - best_h;
-      const int cnt_b = contract_b<M>(ocnt, b);
-#else
-      const int unpub_b = pick<M>(height, b) - best_h;
-      const int cnt_b = pick<M>(ocnt, b);
-#endif
-      int row_bpub[M];
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-#if TPUSIM_ONEHOT
-        const int oc_b = (i == b) ? cnt_b : contract_b<M>(ocp[i], b);
-        int row_b = 0;
-#pragma unroll
-        for (int k = 0; k < M; ++k) row_b += oin[k][i] * (k == b);
-#else
-        const int oc_b = (i == b) ? cnt_b : pick<M>(ocp[i], b);
-        int row_b = 0;
-#pragma unroll
-        for (int k = 0; k < M; ++k) row_b = (k == b) ? oin[k][i] : row_b;
-#endif
-        row_b = (i == b) ? cnt_b : row_b;
-        row_bpub[i] = row_b - ((i == b) ? unpub_b : 0);
-        // Reorg stale accounting: own blocks above lca(i, b).
-        const int d_stale = adopt[i] ? ocnt[i] - oc_b : 0;
-        stale[i] += d_stale;
-        dmax = max(dmax, d_stale);
-        sbm[i] += d_stale > 0;
-        if (FLIGHT && adopt[i] && (d_stale > d2 || (miner2 == M && d_stale == d2))) {
-          miner2 = i;
-          d2 = d_stale;
-        }
+      // FoundBlock. A selfish winner appends privately, except that a find on
+      // its one private block while the public chain is level with it (bhp)
+      // publishes both: the race, a group of count 2.
+      const bool won = found_due && 0 <= wq && wq < M;
+      const int w = won ? wq : 0;
+      bool private_append = false, is_race = false;
+      if (SELFISH && found_due) {
+        const int npriv_w = g.from(npriv, w), height_w = g.from(height, w);
+        const bool sel_w = won && g.from(sel, w);
+        is_race = sel_w && npriv_w == 1 && bhp == height_w;
+        private_append = sel_w && !is_race;
       }
-      // cpb[j][o] = cp[b, j, o]. The factored update (tpusim.state.notify):
-      //   Y[j] = (a_j | j == b) ? b_pub : cpb[j];  W[i] = i == b ? b_pub : cpb[i]
-      //   cp[i, j] = a_i ? Y[j] : (a_j ? W[i] : cp[i, j])
-      // and own_cp[i][j] = cp[i, j, i] of the same update.
-#if TPUSIM_ONEHOT
-      // K5b: cpb[j][o] = sum_p cp[p, j, o] * [p == b], M plane loads where
-      // the gather reads one (pallas_engine.py:477-479), and its diagonal
-      // cpb_diag[i] = sum_q cpb[i][q] * [i == q], the eye contraction.
-      const auto cpb = [&](int jo) {
-        int x = 0;
-#pragma unroll
-        for (int p = 0; p < M; ++p) {
-          x += static_cast<int>(cp[(static_cast<long>(p) * M * M + jo) * R]) * (p == b);
-        }
-        return x;
-      };
-      int cpb_diag[M];
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        cpb_diag[i] = 0;
-#pragma unroll
-        for (int q = 0; q < M; ++q) cpb_diag[i] += (i == q) ? cpb(i * M + q) : 0;
-      }
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-#pragma unroll
-        for (int j = 0; j < M; ++j) {
-          if (adopt[i]) {
-            ocp[i][j] = (adopt[j] || j == b) ? row_bpub[i] : cpb(j * M + i);
-          } else if (adopt[j]) {
-            ocp[i][j] = (i == b) ? row_bpub[i] : cpb_diag[i];
-          }
-        }
-      }
-#else
-      const C* const cpb = cp + static_cast<long>(b) * M * M * R;
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-#pragma unroll
-        for (int j = 0; j < M; ++j) {
-          if (adopt[i]) {
-            ocp[i][j] = (adopt[j] || j == b) ? row_bpub[i]
-                                             : static_cast<int>(cpb[(j * M + i) * R]);
-          } else if (adopt[j]) {
-            ocp[i][j] = (i == b) ? row_bpub[i] : static_cast<int>(cpb[(i * M + i) * R]);
-          }
-        }
-      }
-#endif
-#pragma unroll 1
-      for (int i = 0; i < M; ++i) {
-        const bool ai = (adopt_mask >> i) & 1u;
-#pragma unroll 1
-        for (int j = 0; j < M; ++j) {
-          const bool aj = (adopt_mask >> j) & 1u;
-          if (!ai && !aj) continue;
-          C* const dst = cp + static_cast<long>(i * M + j) * M * R;
-          if (ai ? (aj || j == b) : (i == b)) {
-#pragma unroll
-            for (int o = 0; o < M; ++o) dst[o * R] = static_cast<C>(row_bpub[o]);
-          } else {
-#if TPUSIM_ONEHOT
-            const int src = (ai ? j : i) * M;
-#pragma unroll
-            for (int o = 0; o < M; ++o) dst[o * R] = static_cast<C>(cpb(src + o));
-#else
-            const C* const src = cpb + static_cast<long>(ai ? j : i) * M * R;
-#pragma unroll
-            for (int o = 0; o < M; ++o) dst[o * R] = src[o * R];
-#endif
-          }
-        }
-      }
-      // Adoption of the rest of the state.
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        if (adopt[i]) {
-#pragma unroll
-          for (int j = 0; j < M; ++j) oin[i][j] = row_bpub[j];
-          ocnt[i] = row_bpub[i];
-          height[i] = best_h;
-          npriv[i] = 0;
-          base[i] = best_tip;
-          if constexpr (kSlots == 2) {
-            a0[i] = kInf;
-            a1[i] = kInf;
-            c0[i] = 0;
-            c1[i] = 0;
-          } else {
-#pragma unroll
-            for (int k = 0; k < kSlots; ++k) {
-              ga[i][k] = kInf;
-              gc[i][k] = 0;
-            }
-          }
-        }
-      }
-    }
-    if (notify) bhp = best_h;
+      const bool ow = won && m == wq;
+      push(t + prop, is_race ? 2 : 1, ow && !private_append);
+      if (SELFISH && ow) npriv += private_append ? 1 : (is_race ? -1 : 0);
+      ocnt += ow;
+      height += ow;
+      int h_found = 0;  // the find row's height
+      if (FLIGHT && found_due) h_found = won ? g.from(height, w) : 0;
+      if (found_due) nbt = t + dt;
 
-    if (FLIGHT) {
-      // Row 1: the find, or an arrival if the sweep flushed a group; row 2:
-      // the adoption, if any. Heights are after the adoption except the
-      // find's.
-      if (found_due || (notify && pmin < kInf)) {
-        fr.push(fl, r, R, found_due ? kKindFind : kKindArrival, found_due ? w_idx : arr_miner,
-                found_due ? h_found : pick<M>(height, arr_miner), 0, t);
-      }
-      if (adopt_mask) {
-        fr.push(fl, r, R, dmax > 0 ? kKindStale : kKindReorg, miner2, miner2 < M ? best_h : 0,
-                dmax, t);
-      }
-    }
-
-    // Cut-through to the next event.
-    int earliest = kInf;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
+      // Notify sweep, deferred while another find is due at this ms: the
+      // flush, then the best published chain (private blocks excluded), the
+      // first-seen tip among the best, the lowest miner among those.
+      const bool notify = !(found_due && nbt == t);
+      const int t_flush = notify ? t : kNegGate;
+      int unarrived;
       if constexpr (kSlots == 2) {
-        earliest = min(earliest, a0[m] > t ? a0[m] : kInf);
-        earliest = min(earliest, a1[m] > t ? a1[m] : kInf);
+        unarrived = flush2(a0, a1, c0, c1, t_flush, base);
       } else {
-        earliest = min(earliest, pending_k<kSlots>(ga[m], t));
+        unarrived = flush_k<kGenSlots>(ga, gc, t_flush, base);
       }
-    }
-    t = max(min(nbt, earliest), t);
+      const int pub = own ? height - unarrived - npriv : -kInf;
+      const int best_h = g.max(pub);
+      const bool cand = pub == best_h;
+      const int best_tip = g.min(cand ? base : kInf);
+      const int b = g.lowest(cand && base == best_tip);
 
-    mre = max(mre, dmax);
-    sev += dmax > 0;
-    act += 1;
-    if (dmax > 0) {
-      const int bucket = min(dmax, kBuckets) - 1;
+      if (SELFISH) {
+        // Selfish reveal, before the reorg: publish enough private blocks to
+        // match or beat the best chain, the whole burst as one merged group
+        // (pallas_engine.py:413-420).
+        const int lead = height - best_h;
+        const int sc = npriv;
+        const bool reveal = sel && lead >= 0 && sc > lead && notify;
+        const int n = (sc > 1 && lead == 1) ? sc : sc - lead;
+        push(t + prop, n, reveal);
+        if (reveal) npriv = sc - n;
+      }
+
+      // Adoption: a miner adopts b's chain when it is strictly longer.
+      const bool adopt = own && notify && best_h > height;
+      const unsigned amask = g.ballot(adopt);
+      int dmax = 0;
+      int miner2 = M;  // the adoption row's miner: the deepest pop
+      if (amask) {
+        const bool is_b = m == b;
+        // Reads of b's entries, diagonals corrected from ocnt (the
+        // authority): b's unpublished count and own count from lane b, b's
+        // column of own_cp and row of own_in at this lane's miner.
+#if TPUSIM_ONEHOT
+        // K5b: each as the contraction with the one-hot of b
+        // (pallas_engine.py:442-449, 459-461): a group sum, and sums over
+        // this lane's own_cp row and own_in column.
+        const int unpub_b = g.add(height * is_b) - best_h;
+        const int cnt_b = g.add(ocnt * is_b);
+        int oc_b = 0, in_b = 0;
+        if (own) {
 #pragma unroll
-      for (int k = 0; k < kBuckets; ++k) rdh[k] += (k == bucket);
+          for (int k = 0; k < M; ++k) {
+            oc_b += static_cast<int>(ocp[m * M + k]) * (k == b);
+            in_b += static_cast<int>(oin[k * M + m]) * (k == b);
+          }
+        }
+#else
+        const int unpub_b = g.from(height, b) - best_h;
+        const int cnt_b = g.from(ocnt, b);
+        const int oc_b = own ? static_cast<int>(ocp[m * M + b]) : 0;
+        const int in_b = own ? static_cast<int>(oin[b * M + m]) : 0;
+#endif
+        // row_bpub[m]: b's published count row (own_in's row b, diagonal
+        // corrected) at this lane's miner.
+        const int rb = is_b ? cnt_b - unpub_b : in_b;
+        // Reorg stale accounting: own blocks above lca(m, b).
+        const int d_stale = adopt ? ocnt - (is_b ? cnt_b : oc_b) : 0;
+        stale += d_stale;
+        sbm += d_stale > 0;
+        dmax = g.max(d_stale);
+        if (FLIGHT) {
+          const int score = adopt ? d_stale : -1;
+          const int deepest = g.max(score);
+          miner2 = g.lowest(adopt && score == deepest);
+        }
+        // The factored update (tpusim.state.notify), cpb[j][o] = cp[b, j, o]:
+        //   cp[i, j] = a_i ? ((a_j | j == b) ? b_pub : cpb[j])
+        //                  : (a_j ? (i == b ? b_pub : cpb[i]) : cp[i, j])
+        // own_cp[i][j] = cp[i, j, i] of the same update (lane i's row), the
+        // adopters' own_in rows (lane j's column) and own counts.
+        if (own) {
+          bpub[m] = static_cast<C>(rb);
+          // A non-adopter's new entries: cpb[m][m], or b_pub at b.
+#if TPUSIM_ONEHOT
+          // cpb's diagonal entry (m, m), as the eye contraction over cpb[m].
+          int col = rb;
+          if (!adopt && !is_b) {
+            col = 0;
+#pragma unroll
+            for (int q = 0; q < M; ++q) col += q == m ? cpb(b, m, q) : 0;
+          }
+#else
+          const int col = adopt || is_b ? rb : cpb(b, m, m);
+#endif
+#pragma unroll
+          for (int j = 0; j < M; ++j) {
+            const bool aj = (amask >> j) & 1u;
+            const int v = adopt ? (aj || j == b ? rb : cpb(b, j, m)) : col;
+            if (adopt || aj) ocp[m * M + j] = static_cast<C>(v);
+            if (aj) oin[j * M + m] = static_cast<C>(rb);
+          }
+          if (adopt) ocnt = rb;
+        }
+        g.sync();  // bpub complete
+        // cp: the pairs (i, j) with an adopter, each a row of M counts,
+        // spread over the lanes. The update runs in place: it reads only the
+        // planes cp[b, p, :] of miners p that neither adopt nor are b, and
+        // writes only rows cp[i, :, :] of adopters i and columns cp[:, j, :]
+        // of adopters j; b never adopts. (The one-hot read also sums the
+        // other planes' entries, each times 0.)
+        for (int p = m; p < M * M; p += kGroupLanes) {
+          const int i = p / M, j = p - i * M;
+          const bool ai = (amask >> i) & 1u, aj = (amask >> j) & 1u;
+          if (!ai && !aj) continue;
+          C* const dst = cp + p * T::kRow;
+          const bool from_bpub = ai ? (aj || j == b) : (i == b);
+#if TPUSIM_ONEHOT
+          if (!from_bpub) {
+            const int src = ai ? j : i;
+#pragma unroll
+            for (int o = 0; o < M; ++o) dst[o] = static_cast<C>(cpb(b, src, o));
+            continue;
+          }
+          const C* const src = bpub;
+#else
+          const C* const src = from_bpub ? bpub : cp + (b * M + (ai ? j : i)) * T::kRow;
+#endif
+#pragma unroll
+          for (int v = 0; v < T::kRow / T::kVec; ++v) {
+            reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(src)[v];
+          }
+        }
+        // Adoption of the rest of the state.
+        if (adopt) {
+          height = best_h;
+          npriv = 0;
+          base = best_tip;
+          a0 = a1 = kInf;
+          c0 = c1 = 0;
+#pragma unroll
+          for (int k = 0; k < kGenSlots; ++k) {
+            ga[k] = kInf;
+            gc[k] = 0;
+          }
+        }
+        g.sync();  // this event's tables before the next event's reads
+      }
+      if (notify) bhp = best_h;
+
+      if (FLIGHT) {
+        // Row 1: the find, or an arrival if the sweep flushed a group; row 2:
+        // the adoption, if any. Heights are after the adoption except the
+        // find's. Lane 0 keeps the run's ring cursor and writes the rows.
+        const bool arrival = !found_due && notify && pmin < kInf;
+        const int h_arr = arrival ? g.from(height, arr_miner) : 0;
+        if (m == 0) {
+          if (found_due || arrival) {
+            fr.push(fl, r, R, found_due ? kKindFind : kKindArrival, found_due ? w : arr_miner,
+                    found_due ? h_found : h_arr, 0, t);
+          }
+          if (amask) {
+            fr.push(fl, r, R, dmax > 0 ? kKindStale : kKindReorg, miner2,
+                    miner2 < M ? best_h : 0, dmax, t);
+          }
+        }
+      }
+
+      // Cut-through to the next event.
+      int pend;
+      if constexpr (kSlots == 2) {
+        pend = pending2(a0, a1, t);
+      } else {
+        pend = pending_k<kGenSlots>(ga, t);
+      }
+      t = max(min(nbt, g.min(pend)), t);
+
+      mre = max(mre, dmax);
+      sev += dmax > 0;
+      act += 1;
+      if (dmax > 0 && m == min(dmax, kBuckets) - 1) ++rdh;
+    }
+
+    ovf = ld<int>(in.p[13], r) + g.add(ovf);
+    if (m == 0) {
+      st<int>(out.p[0], r, t);
+      st<int>(out.p[1], r, nbt);
+      st<C>(out.p[2], r, bhp);
+      st<int>(out.p[13], r, ovf);
+      st<int>(out.p[14], r, mre);
+      st<int>(out.p[15], r, sev);
+      st<int>(out.p[16], r, act);
+      if (FLIGHT) fr.store(fl, r, R);
+    }
+    if (m < kBuckets) st<int>(out.p[18], m * R + r, rdh);
+    if (own) {
+      st<C>(out.p[3], m * R + r, height);
+      st<C>(out.p[4], m * R + r, npriv);
+      st<S>(out.p[5], m * R + r, stale);
+      st<int>(out.p[6], m * R + r, base);
+      if constexpr (kSlots == 2) {
+        st<int>(out.p[7], (2 * m) * R + r, a0);
+        st<int>(out.p[7], (2 * m + 1) * R + r, a1);
+        st<C>(out.p[8], (2 * m) * R + r, c0);
+        st<C>(out.p[8], (2 * m + 1) * R + r, c1);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          st<int>(out.p[7], (m * kSlots + k) * R + r, ga[k]);
+          st<C>(out.p[8], (m * kSlots + k) * R + r, gc[k]);
+        }
+      }
+      st<C>(out.p[12], m * R + r, ocnt);
+      st<int>(out.p[17], m * R + r, sbm);
     }
   }
 
-  st<int>(out.p[0], r, t);
-  st<int>(out.p[1], r, nbt);
-  st<C>(out.p[2], r, bhp);
-  st<int>(out.p[13], r, ovf);
-  st<int>(out.p[14], r, mre);
-  st<int>(out.p[15], r, sev);
-  st<int>(out.p[16], r, act);
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    st<C>(out.p[3], m * R + r, height[m]);
-    st<C>(out.p[4], m * R + r, npriv[m]);
-    st<S>(out.p[5], m * R + r, stale[m]);
-    st<int>(out.p[6], m * R + r, base[m]);
-    if constexpr (kSlots == 2) {
-      st<int>(out.p[7], (2 * m) * R + r, a0[m]);
-      st<int>(out.p[7], (2 * m + 1) * R + r, a1[m]);
-      st<C>(out.p[8], (2 * m) * R + r, c0[m]);
-      st<C>(out.p[8], (2 * m + 1) * R + r, c1[m]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        st<int>(out.p[7], (m * kSlots + k) * R + r, ga[m][k]);
-        st<C>(out.p[8], (m * kSlots + k) * R + r, gc[m][k]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      st<C>(out.p[10], (m * M + j) * R + r, ocp[m][j]);
-      st<C>(out.p[11], (m * M + j) * R + r, oin[m][j]);
-    }
-    st<C>(out.p[12], m * R + r, ocnt[m]);
-    st<int>(out.p[17], m * R + r, sbm[m]);
-  }
-#pragma unroll
-  for (int k = 0; k < kBuckets; ++k) st<int>(out.p[18], k * R + r, rdh[k]);
-  if (FLIGHT) fr.store(fl, r, R);
+  __syncthreads();
+  copy_table<M, C, false>(regions, nullptr, out.p[10], M * M, T::kOcp, M, r0, n_runs, R);
+  copy_table<M, C, false>(regions, nullptr, out.p[11], M * M, T::kOin, M, r0, n_runs, R);
+  copy_table<M, C, false>(regions, nullptr, out.p[9], M * M * M, T::kCp, T::kRow, r0, n_runs, R);
 }
 #endif  // TPUSIM_WIDE
+
+// One launch in count type C and stale type S: the wide kernel one thread a
+// run in kThreads-thread blocks; the narrow one a group of kGroupLanes lanes
+// a run, kRunsPerBlock runs a block, the runs' tables in dynamic shared
+// memory (above 48 KB from M = 11 with int32 counts and M = 14 with int16:
+// the attribute raises the kernel's limit).
+template <int M, typename C, typename S, bool SELFISH, bool FLIGHT, bool PACKED>
+cudaError_t launch_typed(const int* rows, const int* cap, const int* prop, unsigned selfish,
+                         const int* selfish_in, const Leaves& in, const Leaves& out, int steps,
+                         int n_runs, const Flight& fl TPUSIM_SAMPLER_PARAM, cudaStream_t stream) {
+  const auto kernel = event_loop_exact_kernel<M, C, S, SELFISH, FLIGHT, PACKED>;
+#if TPUSIM_WIDE
+  const dim3 grid((n_runs + kThreads - 1) / kThreads), block(kThreads);
+  constexpr int smem = 0;
+#else
+  const dim3 grid((n_runs + kRunsPerBlock - 1) / kRunsPerBlock), block(kBlockThreads);
+  constexpr int smem = narrow_smem_bytes<M, C>();
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+#endif
+  kernel<<<grid, block, smem, stream>>>(rows, cap, prop, selfish, in, out, steps, n_runs, fl,
+                                        selfish_in TPUSIM_SAMPLER_ARG);
+  return cudaGetLastError();
+}
 
 template <int M, bool SELFISH, bool FLIGHT, bool PACKED>
 cudaError_t launch_ms(const int* rows, const int* cap, const int* prop, unsigned selfish,
                       const int* selfish_in, const Leaves& in, const Leaves& out, int count16,
                       int stale16, int steps, int n_runs, const Flight& fl TPUSIM_SAMPLER_PARAM,
                       cudaStream_t stream) {
-  const dim3 grid((n_runs + kThreads - 1) / kThreads), block(kThreads);
   if (count16 && stale16) {
-    event_loop_exact_kernel<M, int16_t, int16_t, SELFISH, FLIGHT, PACKED><<<grid, block, 0, stream>>>(
-        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in TPUSIM_SAMPLER_ARG);
-  } else if (count16) {
-    event_loop_exact_kernel<M, int16_t, int32_t, SELFISH, FLIGHT, PACKED><<<grid, block, 0, stream>>>(
-        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in TPUSIM_SAMPLER_ARG);
-  } else if (!stale16) {
-    event_loop_exact_kernel<M, int32_t, int32_t, SELFISH, FLIGHT, PACKED><<<grid, block, 0, stream>>>(
-        rows, cap, prop, selfish, in, out, steps, n_runs, fl, selfish_in TPUSIM_SAMPLER_ARG);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_typed<M, int16_t, int16_t, SELFISH, FLIGHT, PACKED>(
+        rows, cap, prop, selfish, selfish_in, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG,
+        stream);
   }
-  return cudaGetLastError();
+  if (count16) {
+    return launch_typed<M, int16_t, int32_t, SELFISH, FLIGHT, PACKED>(
+        rows, cap, prop, selfish, selfish_in, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG,
+        stream);
+  }
+  if (!stale16) {
+    return launch_typed<M, int32_t, int32_t, SELFISH, FLIGHT, PACKED>(
+        rows, cap, prop, selfish, selfish_in, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG,
+        stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // `selfish_in` is the packed variants' per-run flags, or null: no run has a
