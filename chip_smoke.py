@@ -170,8 +170,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 FP32_FLOPS_PER_S = 67e12
 
-#: A chunk compared at this many runs: not a multiple of the kernels'
-#: 64-thread block, so the last block is ragged.
+#: A chunk compared at this many runs (125 blocks of the narrow kernels'
+#: 8 runs, 250 of the wide fast kernel's 4); tests/test_torch_cuda.py holds
+#: every event-loop kernel at 1, 3, 17 and 1,000 runs, ragged blocks
+#: included.
 RUNS_CMP = 1000
 #: hetero32's hashrates (BASELINE.json configs[3]); path W1 runs them at the
 #: default 1 s propagation.
@@ -198,16 +200,27 @@ def check(cond: bool, msg: str) -> None:
 
 
 def fast_kernel_ops(m: int, active: int, finds: int, k: int = 2) -> int:
-    """int32 operations the fast-mode event loop needs for ``active`` events
-    of which ``finds`` are block finds, at ``k`` group slots, counted from
-    csrc/event_loop.cu: on every active event 9 k + 11 per miner (6 k + 1
-    for the flush, the shift of the slots and the published height, 7 for
-    the best chain, 3 for the adoption test, 3 k for the cut-through: 29 at
-    k = 2) and 20 per event (gates, clock, counters); on every find, 5 k + 20
-    more for the winner's own count and arrival group (30 at k = 2). The
-    adoption branch (rows of the miners that adopt) is left out, so the bound
-    below is a lower bound."""
+    """int32 operations the event loops need outside the adoption, for
+    ``active`` events of which ``finds`` are block finds, at ``k`` group
+    slots, counted from csrc/event_loop.cu: on every active event 9 k + 11
+    per miner (6 k + 1 for the flush, the shift of the slots and the
+    published height, 7 for the best chain, 3 for the adoption test, 3 k for
+    the cut-through: 29 at k = 2) and 20 per event (gates, clock, counters);
+    on every find, 5 k + 20 more for the winner's own count and arrival group
+    (30 at k = 2). The fast kernels add :func:`fast_adoption_ops`, the exact
+    ones their own adoption (:func:`exact_kernel_ops`)."""
     return active * ((9 * k + 11) * m + 20) + finds * (5 * k + 20)
+
+
+def fast_adoption_ops(m: int, adopts: int, adopts_sq: int, k: int = 2) -> int:
+    """int32 operations of the fast-mode adoption, counted from
+    csrc/event_loop.cu: 3 M + 2 k + 5 for each (miner, event) pair in which
+    the miner adopts (its own_cp row, its column in the other rows, its
+    own_in column, its own count, height, base, stale counts and k slots),
+    less a^2 on each event with a adopters (``adopts_sq`` sums them): an
+    own_cp entry whose row and column both adopt is written once, so the
+    event writes a (2 M - a) own_cp entries, not 2 a M."""
+    return adopts * (3 * m + 2 * k + 5) - adopts_sq
 
 
 def exact_kernel_ops(m: int, active: int, finds: int, adopts: int, cp_accesses: int,
@@ -265,6 +278,19 @@ def onehot_ops(m: int, adopt_steps: int, contraction_loads: int) -> int:
     own_cp column and own_in row) as contractions of M multiply-adds, two
     operations each; and two per contraction load of cp."""
     return adopt_steps * (2 * m + 2) * 2 * m + 2 * contraction_loads
+
+
+def fast_smem_bytes(m: int, count_bytes: int) -> int:
+    """Dynamic shared memory of one 128-thread block of the fast kernel,
+    computed from the formula of ``Tables<M, C>::kSmem`` in
+    csrc/event_loop.cu (not read from the library): whether a run takes 16
+    lanes (8 runs a block) or a warp (4 runs a block, the flight and wide
+    variants), each lane holds a row of own_cp and one of own_in transposed
+    for each of its P miners (P = 1 up to 32 miners in either width), each
+    row an odd number of 4-byte words."""
+    p = -(-m // 32)
+    words = (-(-m * count_bytes // 4)) | 1
+    return 2 * 128 * p * words * 4
 
 
 def narrow_exact_smem_bytes(m: int, count_bytes: int) -> int:
@@ -539,7 +565,11 @@ def main() -> None:
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
         smem = ""
-        if name.startswith("event_loop_exact") and "_wide" not in name:
+        if name.startswith("event_loop_fast"):
+            smem = (f"; shared memory a block, computed from Tables' formula, "
+                    f"{fast_smem_bytes(m, 2)} B (int16 counts), "
+                    f"{fast_smem_bytes(m, 4)} B (int32)")
+        elif name.startswith("event_loop_exact") and "_wide" not in name:
             smem = (f"; shared memory a block {narrow_exact_smem_bytes(m, 2)} B (int16 counts), "
                     f"{narrow_exact_smem_bytes(m, 4)} B (int32)")
         elif name.startswith("event_loop_exact"):
@@ -709,6 +739,7 @@ def main() -> None:
         midx = torch.arange(m, device=dev)[:, None]
         finds = torch.zeros((), dtype=torch.int64, device=dev)
         adopts = torch.zeros((), dtype=torch.int64, device=dev)
+        adopts_sq = torch.zeros((), dtype=torch.int64, device=dev)
         adopt_steps = torch.zeros((), dtype=torch.int64, device=dev)
         cp_accesses = torch.zeros((), dtype=torch.int64, device=dev)
         contraction_loads = torch.zeros((), dtype=torch.int64, device=dev)
@@ -727,6 +758,7 @@ def main() -> None:
             # A miner adopts iff its height rose past its own find.
             a = ((out[0][h_idx].long() - h0.long() - ow.long()) > 0).sum(0)  # adopters per run
             adopts += a.sum()
+            adopts_sq += (a * a).sum()
             adopt_steps += (a > 0).sum()
             if me.exact:
                 cp_accesses += cp_update_accesses(torch, m, a).sum()
@@ -734,6 +766,7 @@ def main() -> None:
                     contraction_loads += onehot_cp_loads(torch, m, a).sum()
         max_abs_err(out, got, f"{kernel} main-path chunk replayed one step per launch")
         finds, adopts, cp_accesses = int(finds), int(adopts), int(cp_accesses)
+        adopts_sq = int(adopts_sq)
         adopt_steps, contraction_loads = int(adopt_steps), int(contraction_loads)
         del out
         ring = fl or ()
@@ -750,7 +783,8 @@ def main() -> None:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         k = me.group_slots
         ops = (exact_kernel_ops(m, active, finds, adopts, cp_accesses, k) if me.exact
-               else fast_kernel_ops(m, active, finds, k))
+               else fast_kernel_ops(m, active, finds, k)
+               + fast_adoption_ops(m, adopts, adopts_sq, k))
         if fl:
             ops += flight_ops(m, active, adopt_steps, k)
         if kw["onehot"]:
@@ -769,7 +803,8 @@ def main() -> None:
             ring_note += f", {adopt_steps} adopting events, {contraction_loads} contraction loads"
         plain_note = f" on its first {PLAIN_RUNS} runs"
         print(f"[{label}] main-path chunk ({runs} runs x {me.chunk_steps} steps, M = {m}, "
-              f"K = {k}, {active} active events, {finds} finds, {adopts} adopting pairs, "
+              f"K = {k}, {active} active events, {finds} finds, {adopts} adopting pairs "
+              f"(sum of squares {adopts_sq}), "
               f"{cp_accesses} cp accesses{ring_note}): kernel {kernel_ms:.3f} "
               f"ms, plain {plain_ms:.1f} ms{plain_note}, bound {bound_ms:.4f} ms by {bound_by} "
               f"({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {ops} ops -> {ops_ms:.4f} ms) "
@@ -784,7 +819,8 @@ def main() -> None:
         return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                     plain_runs=PLAIN_RUNS, bound_ms=bound_ms,
                     bound_by=bound_by, chunk_active_events=active, chunk_finds=finds,
-                    chunk_adopting_pairs=adopts, chunk_cp_accesses=cp_accesses,
+                    chunk_adopting_pairs=adopts, chunk_adopting_pairs_sq=adopts_sq,
+                    chunk_cp_accesses=cp_accesses,
                     chunk_adopting_events=adopt_steps, chunk_rows_recorded=recorded,
                     chunk_bytes=nbytes, chunk_ops=ops, chunk_contraction_loads=contraction_loads,
                     bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, sampler_ms=sampler_ms,

@@ -2,12 +2,10 @@
 """Time variants of the wide exact kernel (K2w, tpusim_torch/csrc/
 event_loop_exact.cu) on one NVIDIA card, in turns.
 
-Each variant is an edit of the kernel's source, built with the port's own
-nvcc flags (tpusim_torch.csrc.build) into the git-ignored smoke_out/, and
-launched through tpusim_torch.event_loop.event_loop_chunk on one busy chunk
-(chunk 1, 8,192 runs x 1,856 steps) of each case; its time is the mean of
-three launches by CUDA events, the two permutes of cp included. A variant
-that must compute the same function is held against the checkout's kernel.
+Each variant is an edit of the kernel's source, built and timed on one busy
+chunk of each case by the harness in scripts/kernel_variants.py; a time
+includes the two permutes of cp. A variant that must compute the same
+function is held against the checkout's kernel.
 
     python3 scripts/k2w_variants.py
 
@@ -21,37 +19,17 @@ miner, and 40 honest miners with int32 counts (cp in device memory).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import re
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-
-import torch  # noqa: E402
-
-from tpusim_torch import event_loop, sweep  # noqa: E402
-from tpusim_torch.config import MinerConfig, NetworkConfig, SimConfig  # noqa: E402
-from tpusim_torch.csrc import build  # noqa: E402
-from tpusim_torch.engine import Engine, counters_to_kernel  # noqa: E402
-from tpusim_torch.event_loop import state_to_kernel  # noqa: E402
+from kernel_variants import ROOT, run, sub
+from tpusim_torch import sweep
+from tpusim_torch.config import MinerConfig, NetworkConfig, SimConfig
 
 SOURCE = ROOT / "tpusim_torch" / "csrc" / "event_loop_exact.cu"
-OUT = ROOT / "smoke_out" / "k2w_variants"
 WARPS = "static constexpr int kRunWarps = clamp_int(16 / kRunsPerSm, 1, 4);"
 COPY = ("      // cp: the pairs (i, j) with an adopter, each a row of kW words, spread",
         "      // Adoption of the rest of the state.\n")
 OWN_CP = "for (int j = 0; j < M; ++j) {\n            const bool aj = miner_bit(amask, j);"
-
-
-def _sub(text: str, old: str, new: str) -> str:
-    if text.count(old) != 1:
-        raise SystemExit(f"k2w_variants: the source no longer holds {old[:60]!r}")
-    return text.replace(old, new)
 
 
 def _cut(text: str, start: str, end: str) -> str:
@@ -62,11 +40,11 @@ def _cut(text: str, start: str, end: str) -> str:
 #: name -> (edit of the source, whether it computes the same function).
 VARIANTS = {
     "checkout": (lambda s: s, True),
-    **{f"{n} warps": ((lambda s, n=n: _sub(s, WARPS, f"static constexpr int kRunWarps = {n};")),
+    **{f"{n} warps": ((lambda s, n=n: sub(s, WARPS, f"static constexpr int kRunWarps = {n};")),
                       True) for n in (1, 2, 4, 8)},
     "no row copies": (lambda s: _cut(s, *COPY), False),
     "no row copies, no own_cp": (
-        lambda s: _sub(_cut(s, *COPY), OWN_CP, OWN_CP.replace("j < M", "j < 0")), False),
+        lambda s: sub(_cut(s, *COPY), OWN_CP, OWN_CP.replace("j < M", "j < 0")), False),
 }
 
 
@@ -86,77 +64,6 @@ def _cases() -> dict[str, SimConfig]:
             "honest40 int32": SimConfig(network=h40, state_dtype="int32")}
 
 
-def _start(name: str, edit, m: int) -> tuple[Path, subprocess.Popen]:
-    d = OUT / re.sub(r"\W+", "_", f"{name}_m{m}")
-    d.mkdir(parents=True, exist_ok=True)
-    for header in SOURCE.parent.glob("*.cuh"):
-        shutil.copy(header, d / header.name)
-    (d / SOURCE.name).write_text(edit(SOURCE.read_text()))
-    return d, subprocess.Popen(
-        [build.nvcc(), *build._flags("event_loop_exact_wide", m, 2), "-o", str(d / "lib.so"),
-         str(d / SOURCE.name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def _load(name: str, m: int, d: Path, proc: subprocess.Popen) -> ctypes.CDLL:
-    log = proc.communicate()[0]
-    if proc.returncode:
-        raise SystemExit(f"k2w_variants: {name} did not build\n{log}")
-    regs = re.findall(r"Used (\d+) registers", log)
-    print(f"[build] {name}, M = {m}: registers {regs}", flush=True)
-    lib = ctypes.CDLL(str(d / "lib.so"))
-    entry, argtypes = build._ENTRY["event_loop_exact_wide"]
-    getattr(lib, entry).argtypes = argtypes
-    getattr(lib, entry).restype = ctypes.c_int
-    lib.tpusim_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tpusim_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("k2w_variants: needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(card, flush=True)
-    cases = _cases()
-    started = {(name, m): _start(name, edit, m) for name, (edit, _) in VARIANTS.items()
-               for m in sorted({c.network.n_miners for c in cases.values()})}  # one nvcc each
-    libs = {key: _load(*key, *proc) for key, proc in started.items()}
-    real = build.load_library
-    for label, cfg in cases.items():
-        eng = Engine(cfg, "cuda")
-        runs, m = eng.config.batch_size, eng.n_miners
-        keys = eng.make_keys(0, runs)
-        cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
-        state, aux = eng._init(keys)
-        state, aux, _ = eng._chunk(state, aux, cap, keys, 0)
-        prop, selfish = eng.roster()
-        args = (eng._rows(keys, 1), cap, prop, state_to_kernel(state), counters_to_kernel(aux[0]),
-                selfish, None)
-        kw = eng.loop_options()
-        want = event_loop.event_loop_chunk(*args, **kw)
-        times = {}
-        for turn in range(2):
-            for name in (list(VARIANTS) if turn == 0 else list(VARIANTS)[::-1]):
-                build.load_library = lambda *_, lib=libs[name, m]: lib
-                try:
-                    got = event_loop.event_loop_chunk(*args, **kw)
-                    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                    a.record()
-                    for _ in range(3):
-                        event_loop.event_loop_chunk(*args, **kw)
-                    b.record()
-                    torch.cuda.synchronize()
-                finally:
-                    build.load_library = real
-                same = all(torch.equal(x, y) for x, y in zip(got[0] + got[1], want[0] + want[1]))
-                if VARIANTS[name][1] and not same:
-                    raise SystemExit(f"k2w_variants: {name} differs from the checkout on {label}")
-                times.setdefault(name, []).append(a.elapsed_time(b) / 3)
-        print(f"[{label}] ms a busy chunk, the better of two turns: " + ", ".join(
-            f"{name} {min(t):.3f}" for name, t in times.items()) + f"; on {card}", flush=True)
-
-
 if __name__ == "__main__":
-    main()
+    run("k2w_variants", SOURCE, VARIANTS, _cases(),
+        lambda cfg: ("event_loop_exact_wide", cfg.network.n_miners, 2))

@@ -628,6 +628,118 @@ def test_wide_exact_kernel_at_any_run_count(cuda, wide_exact_libraries, case, ru
     _compare_chunk(eng, keys, state, aux, cap, _wide_exact_kernel(network, capacity, options))
 
 
+def _spread(m: int) -> tuple[int, ...]:
+    """m integer hashrate percentages summing to 100, unequal."""
+    w = [m - i + i % 3 for i in range(m)]
+    hs = [max(1, 100 * x // sum(w)) for x in w]
+    return (hs[0] + 100 - sum(hs),) + tuple(hs[1:])
+
+
+def _fast_roster(m: int, crowded: bool = False) -> NetworkConfig:
+    """m honest miners with delays from 100 ms to 30 s; ``crowded`` at a
+    1 s interval with delays up to 10 s, so that most events fork."""
+    if crowded:
+        return NetworkConfig(miners=tuple(
+            MinerConfig(hashrate_pct=h, propagation_ms=(i * 7919) % 10_000)
+            for i, h in enumerate(_spread(m))), block_interval_s=1.0)
+    return _wide_roster(_spread(m), [int(100 * 300 ** (i / max(m - 1, 1))) for i in range(m)])
+
+
+#: m honest miners of equal hashrate with 1 ms delays at a 200 ms interval:
+#: equal best heights and first-seen tips, adopters popping equally deep.
+def _fast_ties(m: int) -> NetworkConfig:
+    hs = [100 // m] * m
+    return NetworkConfig(miners=tuple(
+        MinerConfig(hashrate_pct=h + (i == 0) * (100 - sum(hs)), propagation_ms=1)
+        for i, h in enumerate(hs)), block_interval_s=0.2)
+
+
+#: The fast kernel's variants (K1, K3f, K4f, K4 x K3, K5c, K5a, K5b and the
+#: wide forms, int16 and int32 counts; M = 2 to 40, at 33 and 40 two miners
+#: a lane): network (or "packed" for 9-miner lane groups), group slots,
+#: ring capacity and config options.
+FAST_CASES = {
+    "m2": (_fast_roster(2), 2, 0, {}),
+    "m2-int32": (_fast_roster(2, True), 2, 0, dict(state_dtype="int32", count_rebase=False)),
+    "m4-bursty-ring": (BURSTY, 2, 64, {}),
+    "m4-crowded-k3": (CROWDED, 3, 0, {}),
+    "m9": (default_network(), 2, 0, {}),
+    "m9-int32": (_fast_roster(9, True), 2, 0, dict(state_dtype="int32")),
+    "m9-ties-ring": (_fast_ties(9), 2, 64, {}),
+    "m9-k4-ring": (_fast_roster(9, True), 4, 64, {}),
+    "m9-raw": (default_network(), 2, 0, dict(rng_batch=False)),
+    "m9-onehot": (_fast_ties(9), 2, 0, dict(consensus_gather=False)),
+    "m13": (_fast_roster(13, True), 2, 0, {}),
+    "m16-int32-k4": (_fast_roster(16, True), 4, 0, dict(state_dtype="int32",
+                                                         count_rebase=False)),
+    "packed-ring": ("packed", 2, 64, {}),
+    "packed-raw": ("packed", 2, 0, dict(rng_batch=False)),
+    "m17": (_fast_roster(17, True), 2, 0, {}),
+    "m24-k4": (_fast_roster(24), 4, 0, {}),
+    "w1": (W1, 2, 0, {}),
+    "w1-int32-ring": (W1, 2, 64, dict(state_dtype="int32")),
+    "m32-crowded-onehot": (_fast_roster(32, True), 2, 0, dict(consensus_gather=False)),
+    "m33": (_fast_ties(33), 2, 0, {}),
+    "m33-int32-ring": (_fast_roster(33, True), 2, 64, dict(state_dtype="int32")),
+    "m40": (_fast_roster(40, True), 2, 0, {}),
+    "m40-int32-raw-onehot": (_fast_roster(40), 2, 0, dict(
+        state_dtype="int32", count_rebase=False, rng_batch=False, consensus_gather=False)),
+}
+
+
+def _fast_kernel(m: int, capacity: int, options: dict, packed_run: bool) -> str:
+    return ("event_loop_fast" + ("_wide" if m > event_loop.NARROW_MAX_MINERS else "")
+            + ("_raw" if "rng_batch" in options else "")
+            + ("_onehot" if "consensus_gather" in options else "")
+            + ("_packed" if packed_run else "") + ("_flight" if capacity else ""))
+
+
+@pytest.fixture(scope="module")
+def fast_libraries():
+    """The libraries of FAST_CASES, built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from tpusim_torch.csrc import build
+
+    libs = set()
+    for network, k, capacity, options in FAST_CASES.values():
+        m = 9 if network == "packed" else network.n_miners
+        libs.add((_fast_kernel(m, capacity, options, network == "packed"), m, k))
+    build.build(sorted(libs))
+
+
+@pytest.mark.parametrize("runs", [1, 3, 17, 1000])
+@pytest.mark.parametrize("case", list(FAST_CASES))
+def test_fast_kernel_at_any_run_count(cuda, fast_libraries, case, runs):
+    """The fast kernel (a group of lanes a run: 16 up to 16 miners, 8 runs
+    a block; a warp above, 4 runs a block) at run counts below one block,
+    of a partial last block and of many blocks, every run's chunk end
+    somewhere else (stopped at once, within the chunk, or never): every
+    leaf equal to the plain version's."""
+    network, k, capacity, options = FAST_CASES[case]
+    if network == "packed":
+        cfgs = _lane_configs("fast", duration_ms=2 * DAY, flight_capacity=capacity,
+                             chunk_steps=320, **options)
+        cfgs = cfgs[:min(runs, len(cfgs))]
+        counts = [runs // len(cfgs) + (i < runs % len(cfgs)) for i in range(len(cfgs))]
+        eng = _packed_engine(cfgs, counts, event_loop=event_loop_chunk_plain)
+        keys = eng.make_keys(0, runs)
+        state, aux = eng._init(keys)
+        cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
+        state, aux, _ = eng._chunk(state, aux, cap, keys, 0)
+    else:
+        cfg = SimConfig(network=network, duration_ms=2 * DAY, mode="fast", group_slots=k,
+                        flight_capacity=capacity, chunk_steps=320, **options)
+        eng, keys, state, aux, cap = _mid_run(cfg, runs, 1)
+    i = torch.arange(runs, device="cuda", dtype=torch.int32)
+    cap = torch.where(i % 3 == 1, (i + 1) * 1600, cap)  # early in the chunk
+    cap = torch.where(i % 7 == 2, (i + 1) * (2**28 // runs), cap)  # anywhere in it
+    cap = torch.where(i % 5 == 4, 0, cap).to(torch.int32)  # at once
+    m = eng.n_miners
+    _compare_chunk(eng, keys, state, aux, cap,
+                   _fast_kernel(m, capacity, options, network == "packed"))
+
+
 # ---------------------------------------------------------------------------
 # The raw-word (K5a) and one-hot (K5b) variants, the layout micro-benchmarks
 # (S1), and the SASS of the libraries that predate them.
@@ -750,9 +862,9 @@ def test_micro_kernel_equals_plain(cuda, knob_libraries, op):
 #: Digests of the SASS (``cuobjdump -sass``, addresses, encodings and the
 #: path-derived hash in anonymous-namespace names stripped) of the
 #: libraries that predate the raw-word and one-hot variants, for one nvcc
-#: release: the fast ones as the sources before those variants compiled
-#: them, the narrow exact ones as the group-per-run exact kernel compiles
-#: them, the wide exact ones as the warp-per-run exact kernel does.
+#: release: the fast ones as the group-of-lanes fast kernel compiles them,
+#: the narrow exact ones as the group-per-run exact kernel compiles them,
+#: the wide exact ones as the warp-per-run exact kernel does.
 SASS_PIN = Path(__file__).with_name("torch_sass_digests.json")
 
 
@@ -778,11 +890,10 @@ def _sass_digest(path) -> str:
 
 def test_existing_libraries_keep_their_sass(cuda):
     """The 39 libraries of the variants that predate K5a and K5b compile to
-    their pinned instructions: the 18 fast and wide fast libraries to what
-    they compiled to before those variants were added (no later change to
-    the exact kernel or to the shared header moved them), the 15 narrow
-    exact ones to the kernel that runs a 16-lane group a run, the 6 wide
-    exact ones to the kernel that runs a warp a run."""
+    their pinned instructions: the 18 fast and wide fast libraries to the
+    kernel that runs a group of lanes a run (16 up to 16 miners, a warp
+    above), the 15 narrow exact ones to the kernel that runs a 16-lane group
+    a run, the 6 wide exact ones to the kernel that runs a warp a run."""
     import subprocess
 
     from tpusim_torch.csrc import build

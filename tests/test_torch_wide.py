@@ -66,6 +66,9 @@ HONEST40 = _roster((3,) * 20 + (2,) * 20, _log_delays(40))
 #: 33 miners: in the wide exact kernel's warp lane 0 owns miners 0 and 32,
 #: the selfish one.
 SELFISH33 = _roster((3,) * 2 + (2,) * 30 + (34,), _log_delays(33), selfish=(32,))
+#: 33 honest miners, delays from 100 ms to 60 s: in the wide fast kernel
+#: lane 0 owns miners 0 and 32.
+R33 = _roster((4,) + (3,) * 32, _log_delays(33))
 
 
 def _hetero32() -> NetworkConfig:
@@ -181,8 +184,10 @@ def _run_both(cfg: SimConfig) -> dict:
         (HONEST40, "auto", 8, 1, 2),  # exact, delays up to 60 s
         (_roster(HS24, _log_delays(24)), "auto", 16, 2, 4),
         (SELFISH33, "auto", 8, 1, 2),  # exact, two miners a lane, selfish
+        (R33, "fast", 8, 1, 2),  # fast, two miners a lane
     ],
-    ids=["17-fast", "32-fast", "20-selfish", "hetero32", "40-honest", "24-k4", "33-selfish"],
+    ids=["17-fast", "32-fast", "20-selfish", "hetero32", "40-honest", "24-k4", "33-selfish",
+         "33-fast"],
 )
 def test_run_batch_bit_equal(network, mode, runs, days, slots):
     if network == "hetero32":

@@ -5,33 +5,64 @@
 // (winner, interval) rows): one chunk of `steps` events for every run, each
 // event a block find if one is due, the notify sweep (flush, best chain,
 // reorg) and the cut-through time advance, plus the SimCounters updates.
+// Above 16 miners (TPUSIM_WIDE, K1w) it also replaces the scan engine's
+// fast step (tpusim/engine.py:335 _step_event), which the TPU runs for
+// rosters its kernel's VMEM guard refuses (tpusim/pallas_engine.py:735-774).
 // The plain PyTorch version of the same function is
 // tpusim_torch/event_loop.py::event_loop_chunk_plain.
 //
-// Design. One thread owns one run. The run's state goes from the runs-last
-// global leaves into registers (and local memory where they spill) at
-// entry, the thread walks all `steps` events, and the state is written back
-// once: the TPU kernel's "state resident for the whole chunk", with a
-// thread in place of a VMEM lane. Leaves and rows are runs-last, so the 32
-// threads of a warp read and write 32 neighbouring words. The ragged edge
-// of the runs axis is masked. M (miners) and the count types are template
-// parameters; the miner-axis gathers on the best-chain owner b are
-// unrolled selects, so no array needs a dynamic index.
+// Design. One body for every width: a group of L lanes of one warp steps a
+// run, lane l owning miners l, l + L, ... (P = ceil(M / L) of them, slot k
+// its miner l + L k). Up to 16 miners the group is 16 lanes, lane m miner m
+// (P = 1, two runs a warp, 8 runs a 128-thread block); above 16 miners, and
+// in the flight variants at any M, it is RunWarp's whole warp (P = ceil(M /
+// 32), 4 runs a block). Lanes that own no
+// miner hold neutral values (empty groups, a published height of -kInf).
+// Each lane keeps its miners' leaves in registers: height, stale, base,
+// the K group slots (a0/a1/c0/c1 at K = 2, ga/gc[K] at K >= 3), own count,
+// stale_by_miner and delay; every lane keeps the run's scalars (t, nbt, the
+// counters), lane k < 8 bucket k of rdh, lane 0 the flight ring's cursor.
+// What was a loop over miners is a fold over a lane's P miners, then one
+// collective over the group: the flush and the published heights, the best
+// height a max, the first-seen tip among the best a min, b the lowest such
+// miner, the adopters a ballot and the deepest pop a max, the cut-through a
+// min; b's height and own count are a shuffle from b's lane. A warp's runs
+// step together: a run that has finished steps on inactive, and every branch
+// that holds a collective is taken by the whole warp when any of its runs
+// needs it, each run's effects gated by its own predicates. So every
+// collective takes the full mask (RunPair reduces the warp's two halves
+// apart): a reduction whose mask differs between the lanes of a converged
+// warp runs once for each distinct mask.
+//
+// The tables. In fast mode the adoption sets own_cp[i][j] from a value that
+// depends only on i (b's published count row at i for an adopter i, else its
+// own_cp column toward b), under adopt[i] | adopt[j], and own_in[i][j] from a
+// value that depends only on j (b's published count row at j), under
+// adopt[i]; the reads are own_cp[i][b] and own_in[b][j]
+// (tpusim/pallas_engine.py:440, 457, 509-523). So the lane of miner i keeps
+// row i of own_cp and column i of own_in, as a row of a transposed table:
+// every read is an index by b into the lane's own row, every write a loop
+// over the lane's own row under the adopters' ballot, and no lane touches
+// another's entries (so no barrier orders them: a lane's program order
+// does). The rows live in shared memory in the count type, kRow counts
+// apart, an odd number of 4-byte words, so that the lanes' reads of entry b
+// fall in distinct banks. A block copies its runs' tables in at entry and
+// out at exit, consecutive threads on consecutive runs of one entry of the
+// runs-last leaves, own_in transposed on the way in and back on the way out.
 //
 // What bounds it. Per busy chunk at the default R = 8192 and 1856 steps the
-// kernel must read the rows (steps x 2 x R int32, 122 MB) and read and
-// write about 0.6 KB of state and counters per run: 132 MB, 0.04 ms at
-// 3.35 TB/s. The integer work is larger: outside the adoption branch the
-// function needs 29 M + 20 int32 operations per active event (flush, best
-// chain, adoption test, cut-through) and 30 more per find (the winner's
-// arrival group), ~4.3 G operations for ~14.6 M active events of which about
-// half are finds: ~0.26 ms at the H100's ~16.7 TOP/s int32 rate. So
-// operations bound it. (The loop above does the group push for every miner
-// with branch-free selects, ~30 M per event; that is the kernel's cost, not
-// the function's.) In practice a thread runs its events one after another,
-// so the latency of each dependent operation, with 2 warps per SM at
-// R = 8192 (128 blocks of 64 threads), sets the time; raising occupancy is
-// later work.
+// kernel must read the rows (steps x 2 x R int32, 122 MB) and read and write
+// about 0.6 KB of state and counters per run: 132 MB, 0.04 ms at 3.35 TB/s.
+// The integer work is larger: the function needs 29 M + 20 int32 operations
+// per active event (flush, best chain, adoption test, cut-through) and 30
+// more per find (the winner's arrival group), and 3 M + 2 K + 5 for each
+// (miner, event) pair in which the miner adopts (its own_cp row, its column
+// in the other rows, its own_in column, its scalars and slots), less a^2 on
+// an event with a adopters (an own_cp entry whose row and column both adopt
+// is written once): chip_smoke.py counts the adopting pairs of the chunk it
+// times and the sum of their squares. In
+// practice every lane of a group executes the event's whole sequence,
+// collectives included, so the card's instruction issue sets the time.
 //
 // Counts are computed in int32 and stored in the leaf's type: every count
 // stays within SimConfig.count_bound, so the result is that of the
@@ -43,19 +74,20 @@
 // step also writes up to two int32 rows of 6 fields into its run's ring
 // (C, 6, R), the find or arrival, then the stale or reorg, at slot
 // count % C. The arrival row is classified on the step-entry groups, taken
-// before the find's push overwrites them; the rows' heights add the
-// read-only origin h_base, and the time pair is (base_hi, base_lo + t),
-// un-normalized, as the reference stores it. The capacity C is a runtime
-// argument. The wrapper copies the input ring to the output once per chunk
-// (about 201 MB each way at C = 1024 and R = 8192) and the kernel writes
-// only the rows it records, each thread its own runs-last column, so a
-// warp's store of one field covers 32 neighbouring words. What bounds it:
-// K1's operations plus about 4 M a step for the entry-slot minimum and its
-// owner and 3 M an adopting step for the deepest adopter, and K1's bytes
-// plus the ring read and written once; chip_smoke.py counts both from the
-// chunk it times. FLIGHT = false compiles to the kernel as it was before
-// the recorder: every flight statement sits under `if (FLIGHT)`, and the
-// flight variants are built as libraries of their own (-DTPUSIM_FLIGHT=1).
+// before the find's push overwrites them: the earliest arrived group and its
+// owner, the lowest miner on ties; a reorg row's miner is the adopter with
+// the deepest pop, the lowest on ties. The rows' heights are after the
+// adoption, except the find's, and add the read-only origin h_base; the time
+// pair is (base_hi, base_lo + t), un-normalized, as the reference stores it.
+// The capacity C is a runtime argument. The wrapper copies the input ring to
+// the output once per chunk (about 201 MB each way at C = 1024 and R =
+// 8192) and lane 0 of a run's group writes only the rows it records into its
+// run's runs-last column. What bounds it: K1's operations plus about 4 M a
+// step for the entry-slot minimum and its owner and 3 M an adopting step for
+// the deepest adopter, and K1's bytes plus the ring read and written once;
+// chip_smoke.py counts both from the chunk it times. Every flight statement
+// sits under `if (FLIGHT)`, and the flight variants are built as libraries
+// of their own (-DTPUSIM_FLIGHT=1).
 //
 // Packed grids (PACKED = true, K4f). Replaces the packed variant of the same
 // Pallas kernel (packed=True, tpusim/pallas_engine.py:1065-1081): a sweep
@@ -64,88 +96,64 @@
 // ops, as in the reference, so they reach the kernel already mapped into the
 // rows; what the kernel itself takes per run is the propagation delay of
 // every miner, prop (M, R) runs-last, where the other variants read one
-// (M,) vector for all runs. Each thread loads its run's column once at
-// entry, a coalesced read of M words across the warp, and the event loop is
-// K1's. What bounds it: K1's operations, and K1's bytes plus the (M, R)
-// delays (0.3 MB at R = 8192). PACKED = false compiles to the kernel as it
-// was: the packed variant is a library of its own (-DTPUSIM_PACKED=1).
+// (M,) vector for all runs: each lane loads its miners' delays of its run
+// once at entry, and the event loop is K1's. What bounds it: K1's
+// operations, and K1's bytes plus the (M, R) delays (0.3 MB at R = 8192).
+// The packed variant is a library of its own (-DTPUSIM_PACKED=1).
 //
 // Generic group slots (K >= 3, K5c). Replaces the generic K-slot arrival-group
 // machinery of the same Pallas kernel (group_slots >= 3: push_groups at
 // tpusim/pallas_engine.py:233-249, the flush and compaction at :367-379, the
 // adoption clear and cut-through at :535-539), which the reference's K = 2
-// split slots route around. The build passes -DTPUSIM_GROUP_SLOTS=<K>. Each
-// thread keeps its run's buffer as int ga[M][K], gc[M][K]; every slot index is
-// a compile-time one after unrolling (a push, the flush and the compaction are
-// selects against the run's occupied and arrived counts), so the buffer may
-// live in registers, spilling to local memory where they run out (36 slots of
-// each at M = 9, K = 4). A push merges an equal arrival into the last occupied
-// slot and, when all K are full, merges into slot K - 1 and counts the
-// overflow; a flush moves the tip of the arrived prefix into base and shifts
-// the rest left, kInf and 0 filling the tail. What bounds it: K1's operations
-// with the group terms at K slots (per miner and active event 9 K + 11, 29 at K
-// = 2; per find 5 K + 20, 30 at K = 2), and K1's bytes with (M, K, R) groups.
-// chip_smoke.py counts both. K = 2 compiles to the split-slot kernel as it was:
-// every generic statement sits in the `else` of an `if constexpr (kSlots ==
-// 2)`, and a K = 2 build takes no flag.
+// split slots route around. The build passes -DTPUSIM_GROUP_SLOTS=<K>. A
+// lane keeps each of its miners' buffers as int ga[K], gc[K]; every slot
+// index is a compile-time one after unrolling (a push, the flush and the
+// compaction are selects against the miner's occupied and arrived counts),
+// so the buffer lives in registers. A push merges an equal arrival into the
+// last occupied slot and, when all K are full, merges into slot K - 1 and
+// counts the overflow; a flush moves the tip of the arrived prefix into base
+// and shifts the rest left, kInf and 0 filling the tail. What bounds it: K1's
+// operations with the group terms at K slots (per miner and active event
+// 9 K + 11, 29 at K = 2; per find 5 K + 20, 30 at K = 2), and K1's bytes
+// with (M, K, R) groups. chip_smoke.py counts both. Every generic statement
+// sits in the `else` of an `if constexpr (kSlots == 2)`, and a K = 2 build
+// takes no flag.
 //
 // Packed grids with the flight recorder (PACKED and FLIGHT, K4 x K3): the
 // two compose as they are, the ring code K3's and the per-run operands K4's,
 // each at its own argument offsets, in a library of their own
 // (-DTPUSIM_PACKED=1 -DTPUSIM_FLIGHT=1).
 //
-// Wide rosters (TPUSIM_WIDE, K1w). Replaces the same Pallas kernel at more
-// than 16 miners (K1 wide: the TPU runs 17-24 fast miners through it, VMEM
-// guard at tpusim/pallas_engine.py:735-774, and wider rosters on its scan
-// engine, tpusim/engine.py:335 _step_event), with FLIGHT, PACKED and any K as
-// above. Built with -DTPUSIM_WIDE=1, for any M. At M = 32 the narrow design
-// would hold 2,048 (M, M) table entries a thread and unroll every M^2 body, so
-// here a run's per-miner vectors and its own_cp/own_in tables stay in its
-// output leaves in global memory, runs-last (a warp's access to one entry is
-// 32 neighbouring elements): the thread copies its column of every leaf from
-// the input once at entry and updates it in place, and b-indexed reads are
-// single loads. Thread-local arrays would have held the state in local
-// memory, reserved for every resident thread; the output leaves must be
-// written anyway. Loops over miners stay rolled (a small unroll factor), so
-// compile time and code size do not grow with M. An event makes one pass
-// over the miners for the flush, the best chain and the lowest height (so
-// whether anyone adopts); an adopting event three more: the adopters and
-// their stale accounting, the table rows and columns, the adopters' own
-// state. Two per-event scratch vectors of M entries, the adopter flags and
-// b's published count row, are thread-local arrays (local memory): no miner
-// set is a bit mask, so no width limit. The leaves are plain pointers that
-// the compiler must assume alias, so a load cannot move above an earlier
-// store; the passes load kMinerBatch miners, or kBatch entries, before
-// storing any (event_loop_common.cuh: batched), and the table writes take
-// their values from the local scratch, which no store to a leaf can touch.
-// What bounds it: the operations of K1 (the same function), and K1's bytes
-// with (M, M) tables; a thread's accesses hit its own state in L1 and L2
-// (about 5 KB a run at M = 32 with int16 counts, 40 MB at R = 8192), so in
-// practice the latency of its dependent accesses, with 2 warps per SM at
-// R = 8192, sets the time.
+// Wide rosters (TPUSIM_WIDE, K1w): the same body with a warp a run, built
+// with -DTPUSIM_WIDE=1 for any M, with FLIGHT, PACKED and any K as above. A
+// lane's P miners are arrays folded before each collective, and the adopters
+// are P ballot words, so no miner set is limited to a mask's width.
 //
 // Raw words (TPUSIM_RAW_WORDS, K5a). Replaces the same Pallas kernel with
 // rng_batch=False (tpusim/pallas_engine.py:293-309), in every variant above:
 // a step's row holds its two raw threefry words (int32 bit patterns), and on
-// a step where a block is found the thread maps them itself (draw_raw in
-// event_loop_common.cuh): the winner by the uint32 threshold intervals, the
-// interval by the F1 transcription of XLA:CPU's log1p, every float operation
-// an explicitly rounded intrinsic so that nvcc contracts none but the 24
-// multiply-adds XLA contracts. The thresholds and the mean are a Sampler,
-// the kernel's last parameter (per run when PACKED). What bounds it: K1's
-// operations plus, per find, 87 float32 operations and 4 M + 5 int32 ones;
-// K1's bytes with the raw words in place of the mapped rows, the same size.
-// The other variants' text is unchanged: every raw-word statement sits under
-// `#if TPUSIM_RAW_WORDS`.
+// a step where a block is found the run's lanes map them: the winner by
+// the uint32 threshold intervals, each lane testing its own miners'
+// (loaded once at entry) and the group's max picking the last that holds,
+// as winner_from_word does; the interval in every lane by the F1
+// transcription of XLA:CPU's log1p (interval_from_word in
+// event_loop_common.cuh), every float operation an explicitly rounded
+// intrinsic so that nvcc contracts none but the 24 multiply-adds XLA
+// contracts. The thresholds and the mean are a Sampler, the kernel's last
+// parameter (per run when PACKED). What bounds it: K1's operations plus,
+// per find, 87 float32 operations and 4 M + 5 int32 ones; K1's bytes with
+// the raw words in place of the mapped rows, the same size. Every raw-word
+// statement sits under `#if TPUSIM_RAW_WORDS`.
 //
 // One-hot reads (TPUSIM_ONEHOT, K5b). Replaces the same Pallas kernel with
 // consensus_gather=False (tpusim/pallas_engine.py:442-449, 459-461): each read
-// indexed by the best chain's owner b (height, own_cnt, own_cp's column b,
-// own_in's row b) is the contraction sum_m v[m] * [m == b] over the miner
-// axis, in registers (contract_b), or in the wide variants over M loads of
-// the run's column (contract_col). Only one term is nonzero, so the values
-// are the gather's. What bounds it: K1's operations plus 2 M (2 M + 2) for
-// the contractions of each adopting event.
+// indexed by the best chain's owner b is the contraction sum_m v[m] * [m == b]
+// over the miner axis: b's height and own count a group sum, own_cp's column
+// b and own_in's row b a sum over each lane's whole row. Only one term is
+// nonzero, so the values are the gather's. What bounds it: K1's operations
+// plus 2 M (2 M + 2) for the contractions of each adopting event.
+
+#include <type_traits>
 
 #include "event_loop_common.cuh"
 
@@ -157,509 +165,536 @@ struct Leaves {
   void* p[kLeaves];
 };
 
-#if TPUSIM_WIDE
-// K1w, with the leaf order and arguments of the narrow kernel below.
-template <int M, typename C, typename S, bool FLIGHT, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
-                  const int* __restrict__ prop_in, Leaves in, Leaves out,
-                  int steps, int n_runs, Flight fl TPUSIM_SAMPLER_PARAM) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_runs) return;
-  const long R = n_runs;
-  FlightRun fr;
-  if (FLIGHT) fr.load(fl, r, R);
+constexpr int kBlockThreads = 128;
 
-  int t = ld<int>(in.p[0], r);
-  int nbt = ld<int>(in.p[1], r);
-  int ovf = ld<int>(in.p[10], r);
-  int mre = ld<int>(in.p[11], r);
-  int sev = ld<int>(in.p[12], r);
-  int act = ld<int>(in.p[13], r);
-  const int cap = cap_in[r];
-  int rdh[kBuckets];
-#pragma unroll
-  for (int k = 0; k < kBuckets; ++k) rdh[k] = ld<int>(in.p[15], k * R + r);
-  copy_column<C>(in.p[2], out.p[2], M, r, R);
-  copy_column<S>(in.p[3], out.p[3], M, r, R);
-  copy_column<int>(in.p[4], out.p[4], M, r, R);
-  copy_column<int>(in.p[5], out.p[5], M * kSlots, r, R);
-  copy_column<C>(in.p[6], out.p[6], M * kSlots, r, R);
-  copy_column<C>(in.p[7], out.p[7], M * M, r, R);
-  copy_column<C>(in.p[8], out.p[8], M * M, r, R);
-  copy_column<C>(in.p[9], out.p[9], M, r, R);
-  copy_column<int>(in.p[14], out.p[14], M, r, R);
-  const Column<C> height(out.p[2], r, R), ocp(out.p[7], r, R), oin(out.p[8], r, R),
-      ocnt(out.p[9], r, R);
-  const Column<S> stale(out.p[3], r, R);
-  const Column<int> base(out.p[4], r, R), sbm(out.p[14], r, R);
-  const WideGroups<C> groups(out.p[5], out.p[6], r, R);
-  const auto prop = [&](int m) { return PACKED ? prop_in[m * R + r] : prop_in[m]; };
-  // An adopting event's scratch: which miners adopt, and b's published
-  // count row. Thread-local, so in local memory, which the compiler knows
-  // the leaves' stores cannot touch.
-  bool adopt[M];
-  int row_bpub[M];
+// Lanes a run: a warp (RunWarp, lane l miners l, l + 32, ...) above 16
+// miners and in the flight recorder's variants, whose ring rows cost less
+// with a warp a run; else 16, lane m miner m, the warp's two runs stepping
+// together (RunPair). scripts/fast_variants.py times these against 16 lanes
+// in the flight variants, 8 lanes and a warp a run at M = 9.
+constexpr int kLanes = (TPUSIM_WIDE || TPUSIM_FLIGHT) ? kWarpLanes : kGroupLanes;
+using Group = std::conditional_t<kLanes == kWarpLanes, RunWarp, RunPair>;
+static_assert(kLanes >= kBuckets, "a lane holds each bucket of rdh");
 
-  for (int s = 0; s < steps; ++s) {
-    // An inactive step changes nothing, and a run stays inactive to the end
-    // of the chunk (t moves only while t < cap): stopping is exact.
-    if (!(t < cap)) break;
-    const bool found_due = (t == nbt);
-#if TPUSIM_RAW_WORDS
-    int wq = 0, dt = 0;
-    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
-#else
-    const int wq = rows[(2L * s) * R + r];
-    const int dt = rows[(2L * s + 1) * R + r];
-#endif
-    int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
-    if (FLIGHT) {
-#pragma unroll 4
-      for (int m = 0; m < M; ++m) {
-        const int pm = groups.arrived(m, t);
-        if (pm < pmin) {
-          pmin = pm;
-          arr_miner = m;
-        }
-      }
-    }
+// A run's lanes: the group helper G of L lanes, lane l owning miners l,
+// l + L, ... (P of them, slot k its miner l + L k). A per-miner value is held
+// as v[P] in each lane; the helpers fold a lane's P slots and then reduce
+// over the group.
+template <class G, int L, int P>
+struct Team {
+  G g;
+  int lane;
 
-    // FoundBlock: the winner's own count, height and one arrival group.
-    int w_idx = 0, h_found = 0;  // the find row's miner and height
-    if (found_due && 0 <= wq && wq < M) {
-      ovf += groups.push(wq, t + prop(wq), 1);
-      ocnt.set(wq, ocnt(wq) + 1);
-      h_found = height(wq) + 1;
-      height.set(wq, h_found);
-      w_idx = wq;
-    }
-    if (found_due) nbt = t + dt;
+  __device__ __forceinline__ explicit Team(int thread) : g(thread), lane(thread % L) {}
 
-    // Notify sweep, deferred while another find is due at this ms: the flush
-    // and the best published chain in one pass (the highest, then the
-    // first-seen tip, then the lowest index), and the lowest height, loading
-    // kMinerBatch miners' state before flushing any.
-    const bool notify = !(found_due && nbt == t);
-    const int t_flush = notify ? t : kNegGate;
-    int best_h = -kInf, best_tip = kInf, b = M, min_h = kInf;
-#pragma unroll 1
-    for (int m0 = 0; m0 < M; m0 += kMinerBatch) {
-      int h[kMinerBatch], bs[kMinerBatch], ga[kMinerBatch][kSlots], gc[kMinerBatch][kSlots];
-#pragma unroll
-      for (int u = 0; u < kMinerBatch; ++u) {
-        if (m0 + u >= M) break;
-        h[u] = height(m0 + u);
-        bs[u] = base(m0 + u);
-        groups.load(m0 + u, ga[u], gc[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kMinerBatch; ++u) {
-        const int m = m0 + u;
-        if (m >= M) break;
-        bool flushed;
-        const int pub = h[u] - WideGroups<C>::flush(ga[u], gc[u], t_flush, bs[u], flushed);
-        if (flushed) {
-          groups.store(m, ga[u], gc[u]);
-          base.set(m, bs[u]);
-        }
-        if (pub > best_h || (pub == best_h && bs[u] < best_tip)) {
-          best_h = pub;
-          best_tip = bs[u];
-          b = m;
-        }
-        min_h = min(min_h, h[u]);
-      }
-    }
-
-    // Adoption: a miner adopts b's chain when it is strictly longer.
-    const bool any_adopt = notify && best_h > min_h;
-    int dmax = 0;
-    int miner2 = M, d2 = -1;  // the adoption row's miner: the deepest pop
-    if (any_adopt) {
-      // b never adopts (its published height is the best); its published
-      // own count is the diagonal correction of b's rows.
-#if TPUSIM_ONEHOT
-      const int bpub = contract_col(ocnt, 0, 1, b, M) - (contract_col(height, 0, 1, b, M) - best_h);
-#else
-      const long bM = static_cast<long>(b) * M;
-      const int bpub = ocnt(b) - (height(b) - best_h);
-#endif
-      // The adopters, and their reorg stale accounting: own blocks above
-      // lca(i, b).
-      stale_pass(M, best_h, b, height, ocnt, ocp, stale, sbm, adopt, dmax, miner2, d2);
-      // b's published count row (own_in's row b, diagonal corrected).
-#if TPUSIM_ONEHOT
-      batched(M, [&](long o) { return o == b ? bpub : contract_col(oin, o, M, b, M); },
-              [&](long o, int v) { row_bpub[o] = v; });
-#else
-      batched(M, [&](long o) { return o == b ? bpub : oin(bM + o); },
-              [&](long o, int v) { row_bpub[o] = v; });
-#endif
-      // Adopters' rows take b's published view; the other rows' columns
-      // toward the adopters take their own_cp with b (fast mode).
-#pragma unroll 1
-      for (int i = 0; i < M; ++i) {
-        const long iM = static_cast<long>(i) * M;
-        if (adopt[i]) {
-          const int rb_i = row_bpub[i];
-          batched(M, [&](long j) { return row_bpub[j]; }, [&](long j, int v) {
-            ocp.set(iM + j, rb_i);
-            oin.set(iM + j, v);
-          });
-          ocnt.set(i, rb_i);
-        } else {
-#if TPUSIM_ONEHOT
-          const int col = (i == b) ? bpub : contract_col(ocp, iM, 1, b, M);
-#else
-          const int col = (i == b) ? bpub : ocp(iM + b);
-#endif
-          batched(M, [&](long j) { return adopt[j]; }, [&](long j, int aj) {
-            if (aj) ocp.set(iM + j, col);
-          });
-        }
-      }
-      // The adopters' own state.
-      batched(M, [&](long i) { return adopt[i]; }, [&](long i, int ai) {
-        if (!ai) return;
-        height.set(i, best_h);
-        base.set(i, best_tip);
-        groups.clear(i);
-      });
-    }
-
-    if (FLIGHT) {
-      // Row 1: the find, or an arrival if the sweep flushed a group; row 2:
-      // the adoption, if any. Heights are after the adoption except the
-      // find's.
-      if (found_due || (notify && pmin < kInf)) {
-        fr.push(fl, r, R, found_due ? kKindFind : kKindArrival, found_due ? w_idx : arr_miner,
-                found_due ? h_found : height(arr_miner), 0, t);
-      }
-      if (any_adopt) {
-        fr.push(fl, r, R, dmax > 0 ? kKindStale : kKindReorg, miner2, miner2 < M ? best_h : 0,
-                dmax, t);
-      }
-    }
-
-    // Cut-through to the next event.
-    int earliest = kInf;
-#pragma unroll 4
-    for (int m = 0; m < M; ++m) earliest = min(earliest, groups.pending(m, t));
-    t = max(min(nbt, earliest), t);
-
-    mre = max(mre, dmax);
-    sev += dmax > 0;
-    act += 1;
-    if (dmax > 0) {
-      const int bucket = min(dmax, kBuckets) - 1;
-#pragma unroll
-      for (int k = 0; k < kBuckets; ++k) rdh[k] += (k == bucket);
+  __device__ __forceinline__ int miner(int k) const { return lane + L * k; }
+  // Bit l set where lane l's predicate holds.
+  __device__ __forceinline__ unsigned ballot(bool p) const { return g.ballot(p); }
+  __device__ __forceinline__ int add(int v) const { return g.add(v); }
+  // Whether p, a run's predicate, holds for any run of the warp, whose runs
+  // step together (a warp a run: p itself).
+  __device__ __forceinline__ bool any(bool p) const {
+    if constexpr (L == kWarpLanes) {
+      return p;
+    } else {
+      return __any_sync(kFullMask, p);
     }
   }
 
-  st<int>(out.p[0], r, t);
-  st<int>(out.p[1], r, nbt);
-  st<int>(out.p[10], r, ovf);
-  st<int>(out.p[11], r, mre);
-  st<int>(out.p[12], r, sev);
-  st<int>(out.p[13], r, act);
+  // Miner m's v: its slot picked in every lane, then lane m % L's.
+  __device__ __forceinline__ int of(const int (&v)[P], int m) const {
+    int x = v[0];
 #pragma unroll
-  for (int k = 0; k < kBuckets; ++k) st<int>(out.p[15], k * R + r, rdh[k]);
-  if (FLIGHT) fr.store(fl, r, R);
+    for (int k = 1; k < P; ++k) x = (m / L == k) ? v[k] : x;
+    return g.from(x, m % L);
+  }
+
+  // The lowest miner whose p holds (kInf if none).
+  __device__ __forceinline__ int lowest(const bool (&p)[P]) const {
+    if constexpr (P == 1) {
+      const unsigned bits = g.ballot(p[0]);
+      return bits ? __ffs(bits) - 1 : kInf;
+    } else {
+      int x = kInf;
+#pragma unroll
+      for (int k = P - 1; k >= 0; --k) x = p[k] ? miner(k) : x;
+      return g.min(x);
+    }
+  }
+
+  // The group's max, min and sum of a per-miner value.
+  __device__ __forceinline__ int max_of(const int (&v)[P]) const {
+    int x = v[0];
+#pragma unroll
+    for (int k = 1; k < P; ++k) x = ::max(x, v[k]);
+    return g.max(x);
+  }
+  __device__ __forceinline__ int min_of(const int (&v)[P]) const {
+    int x = v[0];
+#pragma unroll
+    for (int k = 1; k < P; ++k) x = ::min(x, v[k]);
+    return g.min(x);
+  }
+  __device__ __forceinline__ int add_of(const int (&v)[P]) const {
+    int x = v[0];
+#pragma unroll
+    for (int k = 1; k < P; ++k) x += v[k];
+    return g.add(x);
+  }
+};
+
+// A block's tables in shared memory, in the count type C: for each of its
+// kRuns runs, kLanes * P rows of own_cp (row i: miner i's own_cp row) and as
+// many of own_in transposed (row j: miner j's own_in column), each row kRow
+// counts, an odd number of 4-byte words (so that the rows of consecutive
+// lanes start in other banks); run q's row of miner m is row q * kLanes * P
+// + m, the lane's own.
+template <int M, typename C>
+struct Tables {
+  static constexpr int kSize = static_cast<int>(sizeof(C));
+  static constexpr int P = (M + kLanes - 1) / kLanes;
+  static constexpr int kRuns = kBlockThreads / kLanes;
+  static constexpr int kRunRows = kLanes * P;
+  static constexpr int kRow = (((M * kSize + 3) / 4) | 1) * 4 / kSize;
+  static constexpr int kTable = kRuns * kRunRows * kRow;  // counts a table
+  static constexpr int kSmem = 2 * kTable * kSize;
+};
+
+// The block's runs' own_cp and own_in between their runs-last leaves and the
+// tables (own_in transposed): consecutive threads take consecutive runs of
+// one entry, so a warp's accesses to a leaf fall in a few 32-byte sectors.
+template <int M, typename C, bool IN>
+__device__ __forceinline__ void copy_tables(C* tables, const Leaves& in, const Leaves& out,
+                                            int r0, int n_runs, long R) {
+  using T = Tables<M, C>;
+  for (int i = threadIdx.x; i < T::kRuns * M * M; i += kBlockThreads) {
+    const int q = i % T::kRuns, e = i / T::kRuns;
+    if (r0 + q >= n_runs) continue;
+    const int row = q * T::kRunRows;
+    C& x = tables[(row + e / M) * T::kRow + e % M];
+    C& y = tables[T::kTable + (row + e % M) * T::kRow + e / M];
+    if (IN) {
+      x = static_cast<const C*>(in.p[7])[e * R + r0 + q];
+      y = static_cast<const C*>(in.p[8])[e * R + r0 + q];
+    } else {
+      static_cast<C*>(out.p[7])[e * R + r0 + q] = x;
+      static_cast<C*>(out.p[8])[e * R + r0 + q] = y;
+    }
+  }
 }
-#else
+
 // Leaf order: t, nbt, height, stale, base, garr, gcnt, ocp, oin, ocnt, ovf,
 // then the counters mre, sev, act, sbm, rdh (tpusim_torch.event_loop).
-// C is the count type, S the type of `stale`.
+// C is the count type, S the type of `stale`. A run a group of kLanes lanes,
+// Tables<M, C>::kRuns runs a block (the file's header).
 template <int M, typename C, typename S, bool FLIGHT, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockThreads)
 event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
                   const int* __restrict__ prop_in, Leaves in, Leaves out,
                   int steps, int n_runs, Flight fl TPUSIM_SAMPLER_PARAM) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_runs) return;
+  using T = Tables<M, C>;
+  constexpr int P = T::P;
+  extern __shared__ __align__(16) unsigned char smem[];
   const long R = n_runs;
-  FlightRun fr;
-  if (FLIGHT) fr.load(fl, r, R);
+  const int r0 = blockIdx.x * T::kRuns;
+  const int q = threadIdx.x / kLanes;  // the run's place in the block
+  const int r = r0 + q;
+  const Team<Group, kLanes, P> g(threadIdx.x);
+  C* const tables = reinterpret_cast<C*>(smem);
+  copy_tables<M, C, true>(tables, in, out, r0, n_runs, R);
+  __syncthreads();
 
-  int t = ld<int>(in.p[0], r);
-  int nbt = ld<int>(in.p[1], r);
-  int ovf = ld<int>(in.p[10], r);
-  int mre = ld<int>(in.p[11], r);
-  int sev = ld<int>(in.p[12], r);
-  int act = ld<int>(in.p[13], r);
-  const int cap = cap_in[r];
-  int height[M], stale[M], base[M], a0[M], a1[M], c0[M], c1[M], ocnt[M];
-  int prop[M], sbm[M], rdh[kBuckets];
-  int ocp[M][M], oin[M][M];
-  int ga[M][kGenSlots], gc[M][kGenSlots];  // the generic buffer (K >= 3)
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    height[m] = ld<C>(in.p[2], m * R + r);
-    stale[m] = ld<S>(in.p[3], m * R + r);
-    base[m] = ld<int>(in.p[4], m * R + r);
-    if constexpr (kSlots == 2) {
-      a0[m] = ld<int>(in.p[5], (2 * m) * R + r);
-      a1[m] = ld<int>(in.p[5], (2 * m + 1) * R + r);
-      c0[m] = ld<C>(in.p[6], (2 * m) * R + r);
-      c1[m] = ld<C>(in.p[6], (2 * m + 1) * R + r);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        ga[m][k] = ld<int>(in.p[5], (m * kSlots + k) * R + r);
-        gc[m][k] = ld<C>(in.p[6], (m * kSlots + k) * R + r);
-      }
+  // Every thread steps the loop, so that each collective finds all the
+  // lanes of its warp: a group past the last run is inactive throughout.
+  const bool live = r < n_runs;
+  {
+    // The run's scalars, the same in every lane.
+    int t = 0, nbt = 0, mre = 0, sev = 0, act = 0, cap = 0;
+    int rdh = 0;  // bucket `lane` of rdh
+    FlightRun fr;
+    if (live) {
+      t = ld<int>(in.p[0], r);
+      nbt = ld<int>(in.p[1], r);
+      mre = ld<int>(in.p[11], r);
+      sev = ld<int>(in.p[12], r);
+      act = ld<int>(in.p[13], r);
+      cap = cap_in[r];
+      if (g.lane < kBuckets) rdh = ld<int>(in.p[15], g.lane * R + r);
+      if (FLIGHT && g.lane == 0) fr.load(fl, r, R);
     }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      ocp[m][j] = ld<C>(in.p[7], (m * M + j) * R + r);
-      oin[m][j] = ld<C>(in.p[8], (m * M + j) * R + r);
-    }
-    ocnt[m] = ld<C>(in.p[9], m * R + r);
-    sbm[m] = ld<int>(in.p[14], m * R + r);
-    prop[m] = PACKED ? prop_in[m * R + r] : prop_in[m];
-  }
-#pragma unroll
-  for (int k = 0; k < kBuckets; ++k) rdh[k] = ld<int>(in.p[15], k * R + r);
-
-  for (int s = 0; s < steps; ++s) {
-    // An inactive step changes nothing, and a run stays inactive to the end
-    // of the chunk (t moves only while t < cap): stopping is exact.
-    if (!(t < cap)) break;
-    const bool found_due = (t == nbt);
+    int ovf = 0;  // this lane's overflows; the run's are their sum
+    // Slot k's miner's leaves and table rows; a slot without a miner holds
+    // empty groups.
+    bool own[P];
+    int height[P], stale[P], base[P], ocnt[P], sbm[P], prop[P];
+    int a0[P], a1[P], c0[P], c1[P];
+    int ga[P][kGenSlots], gc[P][kGenSlots];
+    C* ocp[P];  // ocp[k][j] = own_cp[miner][j]
+    C* oin[P];  // oin[k][i] = own_in[i][miner]
 #if TPUSIM_RAW_WORDS
-    int wq = 0, dt = 0;
-    if (found_due) draw_raw<M, PACKED>(rows, s, r, R, smp, wq, dt);
-#else
-    const int wq = rows[(2L * s) * R + r];
-    const int dt = rows[(2L * s + 1) * R + r];
+    unsigned lo[P], hi[P];  // the miner's winner interval [lo, hi) (K5a)
 #endif
-    int pmin = kInf, arr_miner = 0;  // the arrival row's, from the step-entry groups
-    if constexpr (kSlots == 2) {
-      if (FLIGHT) earliest_arrived<M>(a0, a1, t, pmin, arr_miner);
-    } else {
-      if (FLIGHT) earliest_arrived_k<M, kSlots>(ga, t, pmin, arr_miner);
-    }
-
-    // FoundBlock: the winner's own count, height and one arrival group.
-    int over = 0;
-    int w_idx = 0, h_found = 0;  // the find row's miner and height
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const bool ow = found_due && (m == wq);
+    for (int k = 0; k < P; ++k) {
+      const int m = g.miner(k);
+      own[k] = live && m < M;
+      height[k] = stale[k] = base[k] = ocnt[k] = sbm[k] = prop[k] = 0;
+      a0[k] = a1[k] = kInf;
+      c0[k] = c1[k] = 0;
+#pragma unroll
+      for (int s = 0; s < kGenSlots; ++s) {
+        ga[k][s] = kInf;
+        gc[k][s] = 0;
+      }
+      ocp[k] = tables + (q * T::kRunRows + m) * T::kRow;
+      oin[k] = ocp[k] + T::kTable;
+#if TPUSIM_RAW_WORDS
+      lo[k] = hi[k] = 0;
+#endif
+      if (!own[k]) continue;
+      height[k] = ld<C>(in.p[2], m * R + r);
+      stale[k] = ld<S>(in.p[3], m * R + r);
+      base[k] = ld<int>(in.p[4], m * R + r);
       if constexpr (kSlots == 2) {
-        over += push2(a0[m], a1[m], c0[m], c1[m], t + prop[m], 1, ow);
+        a0[k] = ld<int>(in.p[5], (2 * m) * R + r);
+        a1[k] = ld<int>(in.p[5], (2 * m + 1) * R + r);
+        c0[k] = ld<C>(in.p[6], (2 * m) * R + r);
+        c1[k] = ld<C>(in.p[6], (2 * m + 1) * R + r);
       } else {
-        over += push_k<kSlots>(ga[m], gc[m], t + prop[m], 1, ow);
-      }
-      ocnt[m] += ow;
-      height[m] += ow;
-      if (FLIGHT && ow) {
-        w_idx = m;
-        h_found = height[m];
-      }
-    }
-    ovf += over;
-    if (found_due) nbt = t + dt;
-
-    // Notify sweep, deferred while another find is due at this ms.
-    const bool notify = !(found_due && nbt == t);
-    const int t_flush = notify ? t : kNegGate;
-    int pub[M];
-    int best_h = -kInf;
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      if constexpr (kSlots == 2) {
-        const bool f0 = a0[m] <= t_flush, f1 = a1[m] <= t_flush;
-        base[m] = f1 ? a1[m] : (f0 ? a0[m] : base[m]);
-        const int na0 = f1 ? kInf : (f0 ? a1[m] : a0[m]);
-        const int na1 = f0 ? kInf : a1[m];
-        const int nc0 = f1 ? 0 : (f0 ? c1[m] : c0[m]);
-        const int nc1 = f0 ? 0 : c1[m];
-        a0[m] = na0;
-        a1[m] = na1;
-        c0[m] = nc0;
-        c1[m] = nc1;
-        pub[m] = height[m] - (nc0 + nc1);
-      } else {
-        pub[m] = height[m] - flush_k<kSlots>(ga[m], gc[m], t_flush, base[m]);
-      }
-      best_h = max(best_h, pub[m]);
-    }
-    // Best published chain: first-seen tiebreak, then the lowest index.
-    int best_tip = kInf;
-#pragma unroll
-    for (int m = 0; m < M; ++m) best_tip = min(best_tip, pub[m] == best_h ? base[m] : kInf);
-    int b = M;
-#pragma unroll
-    for (int m = M - 1; m >= 0; --m) b = (pub[m] == best_h && base[m] == best_tip) ? m : b;
-
-    bool adopt[M];
-    bool any_adopt = false;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      adopt[m] = notify && best_h > height[m];
-      any_adopt |= adopt[m];
-    }
-    int dmax = 0;
-    int miner2 = M, d2 = -1;  // the adoption row's miner: the deepest pop
-    if (any_adopt) {
-      // Reads of b's rows, diagonals corrected from ocnt (the authority).
-#if TPUSIM_ONEHOT
-      const int unpub_b = contract_b<M>(height, b) - best_h;
-      const int cnt_b = contract_b<M>(ocnt, b);
-#else
-      const int unpub_b = pick<M>(height, b) - best_h;
-      const int cnt_b = pick<M>(ocnt, b);
-#endif
-      int row_bpub[M], col_cp[M];
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-#if TPUSIM_ONEHOT
-        const int oc_b = (i == b) ? cnt_b : contract_b<M>(ocp[i], b);
-        int row_b = 0;
-#pragma unroll
-        for (int k = 0; k < M; ++k) row_b += oin[k][i] * (k == b);
-#else
-        const int oc_b = (i == b) ? cnt_b : pick<M>(ocp[i], b);
-        int row_b = 0;
-#pragma unroll
-        for (int k = 0; k < M; ++k) row_b = (k == b) ? oin[k][i] : row_b;
-#endif
-        row_b = (i == b) ? cnt_b : row_b;
-        row_bpub[i] = row_b - ((i == b) ? unpub_b : 0);
-        col_cp[i] = oc_b - ((i == b) ? unpub_b : 0);
-        // Reorg stale accounting: own blocks above lca(i, b).
-        const int d_stale = adopt[i] ? ocnt[i] - oc_b : 0;
-        stale[i] += d_stale;
-        dmax = max(dmax, d_stale);
-        sbm[i] += d_stale > 0;
-        if (FLIGHT && adopt[i] && (d_stale > d2 || (miner2 == M && d_stale == d2))) {
-          miner2 = i;
-          d2 = d_stale;
+        for (int s = 0; s < kSlots; ++s) {
+          ga[k][s] = ld<int>(in.p[5], (m * kSlots + s) * R + r);
+          gc[k][s] = ld<C>(in.p[6], (m * kSlots + s) * R + r);
         }
       }
-      // Adoption: rows of adopters and columns toward them (fast mode).
+      ocnt[k] = ld<C>(in.p[9], m * R + r);
+      sbm[k] = ld<int>(in.p[14], m * R + r);
+      prop[k] = PACKED ? prop_in[m * R + r] : prop_in[m];
+#if TPUSIM_RAW_WORDS
+      lo[k] = PACKED ? smp.lo[m * R + r] : smp.lo[m];
+      hi[k] = PACKED ? smp.hi[m * R + r] : smp.hi[m];
+#endif
+    }
+#if TPUSIM_RAW_WORDS
+    const float mean = live ? smp.mean[PACKED ? r : 0] : 0.0f;
+#endif
+
+    // The step's row, loaded a step ahead: its latency overlaps the step
+    // before it.
+    int row0 = 0, row1 = 0;
+    if (live) {
+      row0 = rows[r];
+      row1 = rows[R + r];
+    }
+    for (int s = 0; s < steps; ++s) {
+      // An inactive step changes nothing, and a run stays inactive to the
+      // end of the chunk (t moves only while t < cap): stopping is exact.
+      // The warp leaves when all its runs are inactive; until then every
+      // branch that holds a collective is taken by the whole warp.
+      const bool active = t < cap;
+      if (!g.any(active)) break;
+      const int w0 = row0, w1 = row1;
+      if (live && s + 1 < steps) {
+        row0 = rows[(2L * s + 2) * R + r];
+        row1 = rows[(2L * s + 3) * R + r];
+      }
+      const bool found_due = active && t == nbt;
+#if TPUSIM_RAW_WORDS
+      // The step's two raw words mapped on a find only: the winner is the
+      // last miner whose interval holds the winner word (each lane tests
+      // its own miners), and every lane maps the interval word itself.
+      int wq = 0, dt = 0;
+      if (g.any(found_due)) {
+        int hit[P];
 #pragma unroll
-      for (int i = 0; i < M; ++i) {
-#pragma unroll
-        for (int j = 0; j < M; ++j) {
-          ocp[i][j] = adopt[i] ? row_bpub[i] : (adopt[j] ? col_cp[i] : ocp[i][j]);
-          oin[i][j] = adopt[i] ? row_bpub[j] : oin[i][j];
+        for (int k = 0; k < P; ++k) {
+          const unsigned w = static_cast<unsigned>(w0);
+          const bool last = g.miner(k) == M - 1;
+          hit[k] = own[k] && w >= lo[k] && (last || w < hi[k]) ? g.miner(k) : -1;
         }
-        if (adopt[i]) {
-          ocnt[i] = row_bpub[i];
-          height[i] = best_h;
-          base[i] = best_tip;
+        wq = max(g.max_of(hit), 0);
+        dt = interval_from_word(static_cast<unsigned>(w1), mean);
+      }
+#else
+      const int wq = w0, dt = w1;
+#endif
+      // The arrival row's operands, from the step-entry groups: the earliest
+      // arrived group and its owner, the lowest miner on ties (row 1 of a
+      // find step is the find's).
+      int pmin = kInf, arr_miner = 0;
+      if (FLIGHT && g.any(active && !found_due)) {
+        int pm[P];
+        bool at[P];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
           if constexpr (kSlots == 2) {
-            a0[i] = kInf;
-            a1[i] = kInf;
-            c0[i] = 0;
-            c1[i] = 0;
+            pm[k] = arrived2(a0[k], a1[k], t);
           } else {
+            pm[k] = arrived_k<kGenSlots>(ga[k], t);
+          }
+        }
+        pmin = g.min_of(pm);
 #pragma unroll
-            for (int k = 0; k < kSlots; ++k) {
-              ga[i][k] = kInf;
-              gc[i][k] = 0;
+        for (int k = 0; k < P; ++k) at[k] = pm[k] == pmin;
+        arr_miner = g.lowest(at);
+      }
+
+      // FoundBlock: the winner's own count, height and one arrival group.
+      const bool won = found_due && 0 <= wq && wq < M;
+      const int w_idx = won ? wq : 0;  // the find row's miner
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const bool ow = won && g.miner(k) == wq;
+        if constexpr (kSlots == 2) {
+          ovf += push2(a0[k], a1[k], c0[k], c1[k], t + prop[k], 1, ow);
+        } else {
+          ovf += push_k<kGenSlots>(ga[k], gc[k], t + prop[k], 1, ow);
+        }
+        ocnt[k] += ow;
+        height[k] += ow;
+      }
+      int h_found = 0;  // the find row's height
+      if (FLIGHT && g.any(found_due)) {
+        const int hw = g.of(height, w_idx);
+        h_found = won ? hw : 0;
+      }
+      if (found_due) nbt = t + dt;
+
+      // Notify sweep, deferred while another find is due at this ms: the
+      // flush, then the best published chain, the first-seen tip among the
+      // best, the lowest miner among those.
+      const bool notify = active && !(found_due && nbt == t);
+      const int t_flush = notify ? t : kNegGate;
+      int pub[P], tip[P];
+      bool is_best[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        int unarrived;
+        if constexpr (kSlots == 2) {
+          unarrived = flush2(a0[k], a1[k], c0[k], c1[k], t_flush, base[k]);
+        } else {
+          unarrived = flush_k<kGenSlots>(ga[k], gc[k], t_flush, base[k]);
+        }
+        pub[k] = own[k] ? height[k] - unarrived : -kInf;
+      }
+      const int best_h = g.max_of(pub);
+#pragma unroll
+      for (int k = 0; k < P; ++k) tip[k] = pub[k] == best_h ? base[k] : kInf;
+      const int best_tip = g.min_of(tip);
+#pragma unroll
+      for (int k = 0; k < P; ++k) is_best[k] = pub[k] == best_h && base[k] == best_tip;
+      const int b = g.lowest(is_best);
+
+      // Adoption: a miner adopts b's chain when it is strictly longer.
+      bool adopt[P];
+      unsigned amask[P];  // word k: bit l where lane l's slot k adopts
+      unsigned any = 0;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        adopt[k] = own[k] && notify && best_h > height[k];
+        amask[k] = g.ballot(adopt[k]);
+        any |= amask[k];
+      }
+      int dmax = 0;
+      int miner2 = M;  // the adoption row's miner: the deepest pop
+      if (g.any(any != 0)) {
+        // Reads of b's entries, diagonals corrected from ocnt (the
+        // authority): b's unpublished count and own count from b's lane, b's
+        // column of own_cp and row of own_in at each of this lane's miners.
+#if TPUSIM_ONEHOT
+        // K5b: each as the contraction with the one-hot of b
+        // (pallas_engine.py:442-449, 459-461): a group sum, and sums over
+        // each miner's own_cp row and own_in column.
+        int hb[P], cb[P];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          hb[k] = height[k] * (g.miner(k) == b);
+          cb[k] = ocnt[k] * (g.miner(k) == b);
+        }
+        const int unpub_b = g.add_of(hb) - best_h;
+        const int cnt_b = g.add_of(cb);
+#else
+        const int unpub_b = g.of(height, b) - best_h;
+        const int cnt_b = g.of(ocnt, b);
+#endif
+        int rb[P], col[P], d_stale[P], score[P];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          int oc_b = 0, in_b = 0;
+          if (own[k]) {
+#if TPUSIM_ONEHOT
+#pragma unroll 8
+            for (int j = 0; j < M; ++j) {
+              oc_b += static_cast<int>(ocp[k][j]) * (j == b);
+              in_b += static_cast<int>(oin[k][j]) * (j == b);
+            }
+#else
+            oc_b = ocp[k][b];
+            in_b = oin[k][b];
+#endif
+          }
+          const bool is_b = g.miner(k) == b;
+          // b's published count row (own_in's row b, diagonal corrected) and
+          // the own_cp column toward b, at this slot's miner.
+          rb[k] = is_b ? cnt_b - unpub_b : in_b;
+          col[k] = is_b ? cnt_b - unpub_b : oc_b;
+          // Reorg stale accounting: own blocks above lca(miner, b).
+          d_stale[k] = adopt[k] ? ocnt[k] - (is_b ? cnt_b : oc_b) : 0;
+          stale[k] += d_stale[k];
+          sbm[k] += d_stale[k] > 0;
+          score[k] = adopt[k] ? d_stale[k] : -1;
+        }
+        dmax = g.max_of(d_stale);
+        if (FLIGHT) {
+          const int deepest = g.max_of(score);
+          bool deep[P];
+#pragma unroll
+          for (int k = 0; k < P; ++k) deep[k] = adopt[k] && score[k] == deepest;
+          miner2 = min(g.lowest(deep), M);
+        }
+        // Adoption (fast mode), every write into this lane's own rows: an
+        // adopter's own_cp row takes b's published count at the adopter, the
+        // other rows' columns toward the adopters their own_cp column toward
+        // b, and own_in's rows of the adopters b's published count row (so
+        // each miner's column, this lane's row of the transposed table,
+        // takes the row's entry at that miner in the adopters' columns).
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (!own[k]) continue;
+          const int v = adopt[k] ? rb[k] : col[k];
+#pragma unroll
+          for (int j = 0; j < M; ++j) {
+            const bool aj = (amask[j / kLanes] >> (j % kLanes)) & 1u;
+            if (adopt[k] || aj) ocp[k][j] = static_cast<C>(v);
+            if (aj) oin[k][j] = static_cast<C>(rb[k]);
+          }
+          if (adopt[k]) {
+            ocnt[k] = rb[k];
+            height[k] = best_h;
+            base[k] = best_tip;
+            a0[k] = a1[k] = kInf;
+            c0[k] = c1[k] = 0;
+#pragma unroll
+            for (int s = 0; s < kGenSlots; ++s) {
+              ga[k][s] = kInf;
+              gc[k][s] = 0;
             }
           }
         }
       }
-    }
 
-    if (FLIGHT) {
-      // Row 1: the find, or an arrival if the sweep flushed a group; row 2:
-      // the adoption, if any. Heights are after the adoption except the
-      // find's.
-      if (found_due || (notify && pmin < kInf)) {
-        fr.push(fl, r, R, found_due ? kKindFind : kKindArrival, found_due ? w_idx : arr_miner,
-                found_due ? h_found : pick<M>(height, arr_miner), 0, t);
+      if (FLIGHT) {
+        // Row 1: the find, or an arrival if the sweep flushed a group; row 2:
+        // the adoption, if any. Heights are after the adoption except the
+        // find's. Lane 0 keeps the run's ring cursor and writes the rows.
+        const bool arrival = !found_due && notify && pmin < kInf;
+        int h_arr = 0;
+        if (g.any(arrival)) h_arr = g.of(height, arr_miner);
+        if (g.lane == 0) {
+          if (found_due || arrival) {
+            fr.push(fl, r, R, found_due ? kKindFind : kKindArrival,
+                    found_due ? w_idx : arr_miner, found_due ? h_found : h_arr, 0, t);
+          }
+          if (any) {
+            fr.push(fl, r, R, dmax > 0 ? kKindStale : kKindReorg, miner2,
+                    miner2 < M ? best_h : 0, dmax, t);
+          }
+        }
       }
-      if (any_adopt) {
-        fr.push(fl, r, R, dmax > 0 ? kKindStale : kKindReorg, miner2, miner2 < M ? best_h : 0,
-                dmax, t);
-      }
-    }
 
-    // Cut-through to the next event.
-    int earliest = kInf;
+      // Cut-through to the next event.
+      int pend[P];
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
+      for (int k = 0; k < P; ++k) {
+        if constexpr (kSlots == 2) {
+          pend[k] = pending2(a0[k], a1[k], t);
+        } else {
+          pend[k] = pending_k<kGenSlots>(ga[k], t);
+        }
+      }
+      const int earliest = g.min_of(pend);
+      if (active) t = max(min(nbt, earliest), t);
+
+      mre = max(mre, dmax);
+      sev += dmax > 0;
+      act += active;
+      if (dmax > 0 && g.lane == min(dmax, kBuckets) - 1) ++rdh;
+    }
+
+    ovf = g.add(ovf);
+    if (live && g.lane == 0) {
+      st<int>(out.p[0], r, t);
+      st<int>(out.p[1], r, nbt);
+      st<int>(out.p[10], r, ld<int>(in.p[10], r) + ovf);
+      st<int>(out.p[11], r, mre);
+      st<int>(out.p[12], r, sev);
+      st<int>(out.p[13], r, act);
+      if (FLIGHT) fr.store(fl, r, R);
+    }
+    if (live && g.lane < kBuckets) st<int>(out.p[15], g.lane * R + r, rdh);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (!own[k]) continue;
+      const int m = g.miner(k);
+      st<C>(out.p[2], m * R + r, height[k]);
+      st<S>(out.p[3], m * R + r, stale[k]);
+      st<int>(out.p[4], m * R + r, base[k]);
       if constexpr (kSlots == 2) {
-        earliest = min(earliest, a0[m] > t ? a0[m] : kInf);
-        earliest = min(earliest, a1[m] > t ? a1[m] : kInf);
+        st<int>(out.p[5], (2 * m) * R + r, a0[k]);
+        st<int>(out.p[5], (2 * m + 1) * R + r, a1[k]);
+        st<C>(out.p[6], (2 * m) * R + r, c0[k]);
+        st<C>(out.p[6], (2 * m + 1) * R + r, c1[k]);
       } else {
-        earliest = min(earliest, pending_k<kSlots>(ga[m], t));
-      }
-    }
-    t = max(min(nbt, earliest), t);
-
-    mre = max(mre, dmax);
-    sev += dmax > 0;
-    act += 1;
-    if (dmax > 0) {
-      const int bucket = min(dmax, kBuckets) - 1;
 #pragma unroll
-      for (int k = 0; k < kBuckets; ++k) rdh[k] += (k == bucket);
+        for (int s = 0; s < kSlots; ++s) {
+          st<int>(out.p[5], (m * kSlots + s) * R + r, ga[k][s]);
+          st<C>(out.p[6], (m * kSlots + s) * R + r, gc[k][s]);
+        }
+      }
+      st<C>(out.p[9], m * R + r, ocnt[k]);
+      st<int>(out.p[14], m * R + r, sbm[k]);
     }
   }
 
-  st<int>(out.p[0], r, t);
-  st<int>(out.p[1], r, nbt);
-  st<int>(out.p[10], r, ovf);
-  st<int>(out.p[11], r, mre);
-  st<int>(out.p[12], r, sev);
-  st<int>(out.p[13], r, act);
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    st<C>(out.p[2], m * R + r, height[m]);
-    st<S>(out.p[3], m * R + r, stale[m]);
-    st<int>(out.p[4], m * R + r, base[m]);
-    if constexpr (kSlots == 2) {
-      st<int>(out.p[5], (2 * m) * R + r, a0[m]);
-      st<int>(out.p[5], (2 * m + 1) * R + r, a1[m]);
-      st<C>(out.p[6], (2 * m) * R + r, c0[m]);
-      st<C>(out.p[6], (2 * m + 1) * R + r, c1[m]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        st<int>(out.p[5], (m * kSlots + k) * R + r, ga[m][k]);
-        st<C>(out.p[6], (m * kSlots + k) * R + r, gc[m][k]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      st<C>(out.p[7], (m * M + j) * R + r, ocp[m][j]);
-      st<C>(out.p[8], (m * M + j) * R + r, oin[m][j]);
-    }
-    st<C>(out.p[9], m * R + r, ocnt[m]);
-    st<int>(out.p[14], m * R + r, sbm[m]);
-  }
-#pragma unroll
-  for (int k = 0; k < kBuckets; ++k) st<int>(out.p[15], k * R + r, rdh[k]);
-  if (FLIGHT) fr.store(fl, r, R);
+  __syncthreads();
+  copy_tables<M, C, false>(tables, in, out, r0, n_runs, R);
 }
-#endif  // TPUSIM_WIDE
+
+// One launch in count type C and stale type S: Tables<M, C>::kRuns runs a
+// 128-thread block, their tables in dynamic shared memory; above 48 KB (40
+// miners with int32 counts) the attribute raises the kernel's limit.
+template <int M, typename C, typename S, bool FLIGHT, bool PACKED>
+cudaError_t launch_typed(const int* rows, const int* cap, const int* prop, const Leaves& in,
+                         const Leaves& out, int steps, int n_runs,
+                         const Flight& fl TPUSIM_SAMPLER_PARAM, cudaStream_t stream) {
+  using T = Tables<M, C>;
+  const auto kernel = event_loop_kernel<M, C, S, FLIGHT, PACKED>;
+  const dim3 grid((n_runs + T::kRuns - 1) / T::kRuns), block(kBlockThreads);
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (set != cudaSuccess) return set;
+  kernel<<<grid, block, T::kSmem, stream>>>(rows, cap, prop, in, out, steps, n_runs,
+                                            fl TPUSIM_SAMPLER_ARG);
+  return cudaGetLastError();
+}
 
 template <int M, bool FLIGHT, bool PACKED>
 cudaError_t launch_m(const int* rows, const int* cap, const int* prop, const Leaves& in,
                      const Leaves& out, int count16, int stale16, int steps, int n_runs,
                      const Flight& fl TPUSIM_SAMPLER_PARAM, cudaStream_t stream) {
-  const dim3 grid((n_runs + kThreads - 1) / kThreads), block(kThreads);
   if (count16 && stale16) {
-    event_loop_kernel<M, int16_t, int16_t, FLIGHT, PACKED>
-        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG);
-  } else if (count16) {
-    event_loop_kernel<M, int16_t, int32_t, FLIGHT, PACKED>
-        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG);
-  } else if (!stale16) {
-    event_loop_kernel<M, int32_t, int32_t, FLIGHT, PACKED>
-        <<<grid, block, 0, stream>>>(rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_typed<M, int16_t, int16_t, FLIGHT, PACKED>(
+        rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG, stream);
   }
-  return cudaGetLastError();
+  if (count16) {
+    return launch_typed<M, int16_t, int32_t, FLIGHT, PACKED>(
+        rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG, stream);
+  }
+  if (!stale16) {
+    return launch_typed<M, int32_t, int32_t, FLIGHT, PACKED>(
+        rows, cap, prop, in, out, steps, n_runs, fl TPUSIM_SAMPLER_ARG, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch(const void* rows, const void* cap, const void* prop, void* const* in,

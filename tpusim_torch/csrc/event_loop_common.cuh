@@ -1,13 +1,12 @@
 // Helpers shared by the event-loop kernels (event_loop.cu for fast mode,
 // event_loop_exact.cu for exact mode): the state constants, loads and stores
-// of a leaf in its own type, b-indexed reads as selects, the arrival-group
-// buffer (split K = 2 slots, and the generic K >= 3 slots), the flight
-// recorder's ring rows, the wide variants' state held in place in the
-// output leaves (Column, WideGroups), the raw-word variants' mapping of a
-// step's threefry words (Sampler, draw_raw, and map_raw_words_kernel, the
-// mapping alone), the one-hot variants' contractions (contract_b,
-// contract_col) and the wide exact kernel's warp a run (RunWarp,
-// miner_bit).
+// of a leaf in its own type, the arrival-group buffer (split K = 2 slots,
+// and the generic K >= 3 slots), the flight recorder's ring rows, the
+// raw-word variants' mapping of a step's threefry words (Sampler,
+// winner_from_word, interval_from_word, and map_raw_words_kernel, the
+// mapping alone), and the groups of lanes
+// that step a run: a 16-lane group up to 16 miners (RunGroup, or RunPair,
+// two that step together), a warp (RunWarp, miner_bit) above.
 
 #pragma once
 
@@ -22,11 +21,9 @@
 #endif
 
 // The wide variants (-DTPUSIM_WIDE=1, built for rosters of more than 16
-// miners), for any miner count: in the fast kernel (K1w) a run's per-miner
-// state lives in its output leaves in global memory and loops over miners
-// stay rolled; in the exact kernel (K2w) a warp owns a run, each lane
-// ceil(M / 32) miners. Without the flag a run's state lives in registers,
-// every miner loop is unrolled, and 16 miners is the limit.
+// miners), for any miner count: a warp owns a run, each lane ceil(M / 32)
+// miners (K1w, K2w). Without the flag a group of lanes owns a run, and 16
+// miners is the limit.
 #ifndef TPUSIM_WIDE
 #define TPUSIM_WIDE 0
 #endif
@@ -95,7 +92,6 @@ namespace {
 constexpr int kInf = 1 << 30;             // state.INF_TIME
 constexpr int kNegGate = -(1 << 29) - 1;  // state.NEG_TIME_CAP - 1
 constexpr int kBuckets = 8;               // engine.DEPTH_BUCKETS
-constexpr int kThreads = 64;
 constexpr int kSlots = TPUSIM_GROUP_SLOTS;
 // The generic buffer's array extent: 1 (and unused) at K = 2.
 constexpr int kGenSlots = kSlots == 2 ? 1 : kSlots;
@@ -109,28 +105,6 @@ template <typename T>
 __device__ __forceinline__ void st(void* base, long i, int v) {
   static_cast<T*>(base)[i] = static_cast<T>(v);
 }
-
-// v[b] for a run-dependent index b, as selects over a compile-time range.
-template <int M>
-__device__ __forceinline__ int pick(const int (&v)[M], int b) {
-  int x = 0;
-#pragma unroll
-  for (int m = 0; m < M; ++m) x = (m == b) ? v[m] : x;
-  return x;
-}
-
-#if TPUSIM_ONEHOT
-// v[b] as the one-hot contraction sum_m v[m] * [m == b]
-// (tpusim/pallas_engine.py:442-449): the one-hot variants' read of what pick
-// selects.
-template <int M>
-__device__ __forceinline__ int contract_b(const int (&v)[M], int b) {
-  int x = 0;
-#pragma unroll
-  for (int m = 0; m < M; ++m) x += v[m] * (m == b);
-  return x;
-}
-#endif
 
 #if TPUSIM_RAW_WORDS
 // The raw-word variants' sampler operands (K5a): the cumulative winner
@@ -215,20 +189,6 @@ __device__ __forceinline__ int winner_from_word(unsigned w, const unsigned* lo,
     if (w >= lo[m * stride] && (m == M - 1 || w < hi[m * stride])) wq = m;
   }
   return wq;
-}
-
-// Step s's (winner, interval) for run r from its two raw words (K5a): the
-// mapping that the other variants find already done in their rows. A
-// kernel draws only on a step where a block is found: nothing else reads
-// the pair.
-template <int M, bool PACKED>
-__device__ __forceinline__ void draw_raw(const int* rows, int s, int r, long R,
-                                         const Sampler& smp, int& wq, int& dt) {
-  const unsigned w = static_cast<unsigned>(rows[(2L * s) * R + r]);
-  const unsigned wi = static_cast<unsigned>(rows[(2L * s + 1) * R + r]);
-  const long off = PACKED ? r : 0, stride = PACKED ? R : 1;
-  wq = winner_from_word<M>(w, smp.lo + off, smp.hi + off, stride);
-  dt = interval_from_word(wi, smp.mean[off]);
 }
 #endif
 
@@ -376,263 +336,14 @@ struct FlightRun {
   }
 };
 
-// The arrival row's operands from the step-entry groups at time t: the
-// earliest arrived group over all miners (kInf if none) and its owner, the
-// lowest index on ties (pallas_engine.py:574-588).
-template <int M>
-__device__ __forceinline__ void earliest_arrived(const int (&a0)[M], const int (&a1)[M], int t,
-                                                 int& pmin, int& owner) {
-  pmin = kInf;
-  owner = 0;
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const int pm = min(a0[m] <= t ? a0[m] : kInf, a1[m] <= t ? a1[m] : kInf);
-    if (pm < pmin) {
-      pmin = pm;
-      owner = m;
-    }
-  }
-}
-
-// earliest_arrived over K >= 3 slots (pallas_engine.py:581-588).
-template <int M, int K>
-__device__ __forceinline__ void earliest_arrived_k(const int (&ga)[M][K], int t, int& pmin,
-                                                   int& owner) {
-  pmin = kInf;
-  owner = 0;
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    int pm = kInf;
-#pragma unroll
-    for (int k = 0; k < K; ++k) pm = min(pm, ga[m][k] <= t ? ga[m][k] : kInf);
-    if (pm < pmin) {
-      pmin = pm;
-      owner = m;
-    }
-  }
-}
-
-// One run's column of a runs-last leaf of type T: entry e at p[e * R], read
-// as int and stored in T. The wide kernels address a run's state through
-// these by a dynamic miner index; a warp's access to one entry is 32
-// neighbouring elements.
-template <typename T>
-struct Column {
-  T* p;
-  long R;
-
-  __device__ __forceinline__ Column(void* base, int r, long runs)
-      : p(static_cast<T*>(base) + r), R(runs) {}
-  __device__ __forceinline__ int operator()(long e) const { return static_cast<int>(p[e * R]); }
-  __device__ __forceinline__ void set(long e, int v) const { p[e * R] = static_cast<T>(v); }
-};
-
-#if TPUSIM_ONEHOT
-// Entry base + b * stride of a run's column for the run-dependent b, as the
-// one-hot contraction sum_p c(base + p * stride) * [p == b] over the M
-// miners (K5b): M loads where the other wide variants load one entry.
-template <typename T>
-__device__ __forceinline__ int contract_col(const Column<T>& c, long base, long stride, int b,
-                                            int M) {
-  int x = 0;
-#pragma unroll 4
-  for (int p = 0; p < M; ++p) x += c(base + p * stride) * (p == b);
-  return x;
-}
-#endif
-
-// Entries a wide kernel loads before it stores any of them. Its leaves are
-// plain pointers that the compiler must assume may alias, so a load cannot
-// move above an earlier store: without batching, each copied entry waits a
-// whole memory round trip.
+// Entries the wide exact kernel loads before it stores any of them: a load
+// cannot move above an earlier store to memory that may alias it, so
+// without batching each copied entry waits a whole round trip.
 constexpr int kBatch = 8;
 
-// Miners a wide kernel's per-event pass loads before it flushes any.
-constexpr int kMinerBatch = 4;
-
-// use(e, load(e)) for e in [0, n), kBatch loads issued before their uses.
-template <typename Load, typename Use>
-__device__ __forceinline__ void batched(long n, Load load, Use use) {
-#pragma unroll 1
-  for (long e0 = 0; e0 < n; e0 += kBatch) {
-    int v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) v[u] = e0 + u < n ? load(e0 + u) : 0;
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      if (e0 + u < n) use(e0 + u, v[u]);
-    }
-  }
-}
-
-// The first pass of a wide kernel's adopting event: which miners adopt
-// (adopt[i]: height below best_h), and each adopter's reorg stale accounting,
-// its own blocks above lca(i, b): stale and stale_by_miner, the deepest pop
-// dmax and, for the flight row, the deepest adopter (miner2, d2: the lowest
-// index on ties). kMinerBatch miners' loads are issued before any store.
-template <typename C, typename S>
-__device__ __forceinline__ void stale_pass(int M, int best_h, int b, const Column<C>& height,
-                                           const Column<C>& ocnt, const Column<C>& ocp,
-                                           const Column<S>& stale, const Column<int>& sbm,
-                                           bool* adopt, int& dmax, int& miner2, int& d2) {
-#pragma unroll 1
-  for (int i0 = 0; i0 < M; i0 += kMinerBatch) {
-    int h[kMinerBatch], cnt[kMinerBatch], cpb[kMinerBatch], st[kMinerBatch], sb[kMinerBatch];
-#pragma unroll
-    for (int u = 0; u < kMinerBatch; ++u) {
-      const long i = i0 + u;
-      if (i >= M) break;
-      h[u] = height(i);
-      cnt[u] = ocnt(i);
-#if TPUSIM_ONEHOT
-      cpb[u] = contract_col(ocp, i * M, 1, b, M);
-#else
-      cpb[u] = ocp(i * M + b);
-#endif
-      st[u] = stale(i);
-      sb[u] = sbm(i);
-    }
-#pragma unroll
-    for (int u = 0; u < kMinerBatch; ++u) {
-      const int i = i0 + u;
-      if (i >= M) break;
-      adopt[i] = best_h > h[u];
-      if (!adopt[i]) continue;
-      const int d_stale = cnt[u] - cpb[u];
-      stale.set(i, st[u] + d_stale);
-      if (d_stale > 0) sbm.set(i, sb[u] + 1);
-      dmax = max(dmax, d_stale);
-      if (d_stale > d2 || (miner2 == M && d_stale == d2)) {
-        miner2 = i;
-        d2 = d_stale;
-      }
-    }
-  }
-}
-
-// This run's n entries of a runs-last leaf, copied from the input to the
-// output: the wide kernels then update the output in place.
-template <typename T>
-__device__ __forceinline__ void copy_column(const void* in, void* out, long n, int r, long R) {
-  const T* const src = static_cast<const T*>(in) + r;
-  T* const dst = static_cast<T*>(out) + r;
-  batched(
-      n, [&](long e) { return static_cast<int>(src[e * R]); },
-      [&](long e, int v) { dst[e * R] = static_cast<T>(v); });
-}
-
-// The wide kernels' view of one run's arrival groups: garr (M, K) int32 and
-// gcnt (M, K) in the count type C, runs-last, in place in the output leaves.
-// Each operation loads one miner's K slots into registers and applies the
-// narrow kernels' helper to them (push2 and the split flush at K = 2,
-// push_k and flush_k at K >= 3); a push stores them back, and a flush leaves
-// the store to its caller, who needs it only when a group left.
-template <typename C>
-struct WideGroups {
-  Column<int> arr;
-  Column<C> cnt;
-
-  __device__ __forceinline__ WideGroups(void* garr, void* gcnt, int r, long R)
-      : arr(garr, r, R), cnt(gcnt, r, R) {}
-
-  __device__ __forceinline__ void load(int m, int (&ga)[kSlots], int (&gc)[kSlots]) const {
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      ga[k] = arr(static_cast<long>(m) * kSlots + k);
-      gc[k] = cnt(static_cast<long>(m) * kSlots + k);
-    }
-  }
-
-  __device__ __forceinline__ void store(int m, const int (&ga)[kSlots],
-                                        const int (&gc)[kSlots]) const {
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      arr.set(static_cast<long>(m) * kSlots + k, ga[k]);
-      cnt.set(static_cast<long>(m) * kSlots + k, gc[k]);
-    }
-  }
-
-  // Append (arrival, count) to miner m's groups. Returns 1 on overflow.
-  __device__ __forceinline__ int push(int m, int arrival, int count) const {
-    int ga[kSlots], gc[kSlots];
-    load(m, ga, gc);
-    int over;
-    if constexpr (kSlots == 2) {
-      over = push2(ga[0], ga[1], gc[0], gc[1], arrival, count, true);
-    } else {
-      over = push_k<kSlots>(ga, gc, arrival, count, true);
-    }
-    store(m, ga, gc);
-    return over;
-  }
-
-  // Flush one miner's loaded groups arrived by t_flush: the last one's
-  // arrival becomes `base`. Returns the count still unarrived; `flushed`
-  // says whether the slots changed (and must be stored).
-  __device__ __forceinline__ static int flush(int (&ga)[kSlots], int (&gc)[kSlots], int t_flush,
-                                              int& base, bool& flushed) {
-    flushed = false;
-    int unarrived = 0;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      flushed |= ga[k] <= t_flush;
-      unarrived += gc[k];
-    }
-    if (!flushed) return unarrived;
-    if constexpr (kSlots == 2) {
-      // The narrow kernels' split-slot flush.
-      const bool f0 = ga[0] <= t_flush, f1 = ga[1] <= t_flush;
-      base = f1 ? ga[1] : (f0 ? ga[0] : base);
-      const int na0 = f1 ? kInf : (f0 ? ga[1] : ga[0]);
-      const int na1 = f0 ? kInf : ga[1];
-      const int nc0 = f1 ? 0 : (f0 ? gc[1] : gc[0]);
-      const int nc1 = f0 ? 0 : gc[1];
-      ga[0] = na0;
-      ga[1] = na1;
-      gc[0] = nc0;
-      gc[1] = nc1;
-      unarrived = nc0 + nc1;
-    } else {
-      unarrived = flush_k<kSlots>(ga, gc, t_flush, base);
-    }
-    return unarrived;
-  }
-
-  // Empty miner m's groups (an adopter's).
-  __device__ __forceinline__ void clear(int m) const {
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      arr.set(static_cast<long>(m) * kSlots + k, kInf);
-      cnt.set(static_cast<long>(m) * kSlots + k, 0);
-    }
-  }
-
-  // Miner m's earliest arrival after t (kInf if none): the cut-through's.
-  __device__ __forceinline__ int pending(int m, int t) const {
-    int e = kInf;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int a = arr(static_cast<long>(m) * kSlots + k);
-      e = min(e, a > t ? a : kInf);
-    }
-    return e;
-  }
-
-  // Miner m's earliest group arrived by t (kInf if none): the arrival row's.
-  __device__ __forceinline__ int arrived(int m, int t) const {
-    int e = kInf;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int a = arr(static_cast<long>(m) * kSlots + k);
-      e = min(e, a <= t ? a : kInf);
-    }
-    return e;
-  }
-};
-
-// The narrow exact kernel's run group (event_loop_exact.cu): kGroupLanes
-// lanes of one warp own one run, lane m its miner m, so a warp holds two
-// runs. Every collective names the group's own lanes: the two runs of a
+// The narrow kernels' run group (event_loop_exact.cu, event_loop.cu):
+// kGroupLanes lanes of one warp own one run, lane m its miner m, so a warp
+// holds two runs. Every collective names the group's own lanes: the two runs of a
 // warp leave their step loops at different steps, and a block's last
 // groups may hold no run at all.
 constexpr int kGroupLanes = 16;
@@ -698,12 +409,12 @@ __device__ __forceinline__ int arrived_k(const int (&ga)[K], int t) {
   return e;
 }
 
-// The wide exact kernel's run (event_loop_exact.cu, TPUSIM_WIDE): one whole
-// warp steps it, lane l owning miners l, l + 32, ... (P = ceil(M / 32) of
-// them, slot k its miner l + 32 k). The lanes of a warp leave their step
-// loop together, so every collective takes the full mask. A per-miner value is
-// held as v[P] in each lane; the helpers below fold a lane's P slots and
-// then reduce over the warp.
+// The wide kernels' run (event_loop_exact.cu and event_loop.cu,
+// TPUSIM_WIDE): one whole warp steps it, lane l owning miners l, l + 32, ...
+// (P = ceil(M / 32) of them, slot k its miner l + 32 k). The lanes of a warp
+// leave their step loop together, so every collective takes the full mask.
+// A per-miner value is held as v[P] in each lane; the helpers below fold a
+// lane's P slots and then reduce over the warp.
 constexpr int kWarpLanes = 32;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
@@ -761,6 +472,45 @@ struct RunWarp {
 #pragma unroll
     for (int k = 1; k < P; ++k) x += v[k];
     return add(x);
+  }
+};
+
+// The fast kernel's pair of runs (event_loop.cu): 16 lanes of a warp own
+// one run, lane m its miner m, and the warp's two runs step together (a run
+// that has finished steps on inactive), so every collective takes the full
+// mask and reduces each half apart: a reduction with a group mask in a
+// converged warp runs once for each distinct mask.
+struct RunPair {
+  int shift;  // the run's first lane within its warp: 0 or 16
+  int lane;   // this thread's lane within its run's half: its miner
+
+  __device__ __forceinline__ explicit RunPair(int thread)
+      : shift(thread & 16), lane(thread & 15) {}
+
+  // Each half's max, min and sum: the other half contributes the neutral
+  // value to the warp's reduction.
+  __device__ __forceinline__ int max(int v) const {
+    const int lo = __reduce_max_sync(kFullMask, shift ? INT32_MIN : v);
+    const int hi = __reduce_max_sync(kFullMask, shift ? v : INT32_MIN);
+    return shift ? hi : lo;
+  }
+  __device__ __forceinline__ int min(int v) const {
+    const int lo = __reduce_min_sync(kFullMask, shift ? INT32_MAX : v);
+    const int hi = __reduce_min_sync(kFullMask, shift ? v : INT32_MAX);
+    return shift ? hi : lo;
+  }
+  __device__ __forceinline__ int add(int v) const {
+    const int lo = __reduce_add_sync(kFullMask, shift ? 0 : v);
+    const int hi = __reduce_add_sync(kFullMask, shift ? v : 0);
+    return shift ? hi : lo;
+  }
+  // Bit m set where lane m's predicate holds.
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return (__ballot_sync(kFullMask, p) >> shift) & 0xFFFFu;
+  }
+  // Lane src's v.
+  __device__ __forceinline__ int from(int v, int src) const {
+    return __shfl_sync(kFullMask, v, src, kGroupLanes);
   }
 };
 

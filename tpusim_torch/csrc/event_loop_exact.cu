@@ -398,8 +398,9 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
     }
     const bool found_due = (t == nbt);
 #if TPUSIM_RAW_WORDS
-    // draw_raw's mapping of the step's two raw words, on a find only, in
-    // lane 0, which hands them to the others.
+    // The mapping of the step's two raw words (winner_from_word,
+    // interval_from_word), on a find only, in lane 0, which hands them to
+    // the others.
     int wq = 0, dt = 0;
     if (found_due) {
       if (lane == 0) {
@@ -1005,7 +1006,8 @@ event_loop_exact_kernel(const int* __restrict__ rows, const int* __restrict__ ca
       }
       const bool found_due = (t == nbt);
 #if TPUSIM_RAW_WORDS
-      // draw_raw's mapping of the step's two raw words, on a find only.
+      // The mapping of the step's two raw words (winner_from_word,
+      // interval_from_word), on a find only.
       int wq = 0, dt = 0;
       if (found_due) {
         const long off = PACKED ? r : 0, stride = PACKED ? R : 1;

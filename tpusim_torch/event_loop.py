@@ -18,11 +18,12 @@ other variants take one roster for every run; and with both (K4 x K3).
 Each of these runs at any number K of arrival-group slots: K = 2 on split
 slots (the reference's split-slot specialization), K >= 3 on the generic
 K-slot buffer (K5c, the sources built with ``TPUSIM_GROUP_SLOTS``). Rosters
-of up to 16 miners (:data:`NARROW_MAX_MINERS`) run the kernels that hold a
-run's state in registers; wider ones run every variant's wide form (K1w,
-K2w, the sources built with ``TPUSIM_WIDE``): K1w holds a run's state in
-global memory, K2w gives a run a block of warps and its tables shared
-memory, and takes ``cp`` run-major (``_launch`` permutes it in and out).
+of up to 16 miners (:data:`NARROW_MAX_MINERS`) run the kernels that give a
+run a group of 16 lanes, lane m miner m's leaves in registers; wider ones
+run every variant's wide form (K1w, K2w, the sources built with
+``TPUSIM_WIDE``), which give a run a warp, lane l miners l, l + 32, ...;
+both keep a run's tables in shared memory, and K2w takes ``cp`` run-major
+(``_launch`` permutes it in and out).
 The reference's two legacy knobs have variants of their own, each of every
 variant above: with ``sampler`` (``SimConfig.rng_batch=False``,
 K5a, the sources built with ``TPUSIM_RAW_WORDS``) the rows hold the raw
@@ -33,7 +34,8 @@ indexed by the best chain's owner b is a one-hot contraction over the
 miner axis. Both give the same values as the default variants.
 
 Both versions take the state runs-last (``(..., R)``, the Pallas kernel's
-layout), so the kernel's threads, one per run, read neighbouring addresses.
+layout), so the kernels' block copies of a table entry, one thread a run,
+read neighbouring addresses.
 ``own_cp`` stays ``[i, j]`` in both modes: the reference's transposed exact
 ``own_cp`` exists only for Mosaic's layouts.
 
