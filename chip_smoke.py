@@ -138,7 +138,10 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    byte-identical to the knobs-on trace's;
 10. the layout micro-benchmarks (S1) through ``python -m tpusim_torch.micro``
    (``micro.main``) at R = 8,192 lanes and N = 512 iterations, then each
-   op's kernel against its plain version.
+   op's kernel against its plain version, sel_flat, sel3 and contract
+   scaling with N (not floor-limited), each op's share of its bound
+   printed (``MICRO_PIPES``; phase 2 prints each S1 kernel's registers and
+   the instructions its loop issues, from ``smoke_out/micro.sass``).
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. The build log (with the compiler's
@@ -165,7 +168,9 @@ OUT = ROOT / "smoke_out"
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth,
 #: and the int32 rate taken as a quarter of the 67 TFLOP/s float32 rate
-#: (half as many int32 lanes as float32 lanes, and no fused multiply-add).
+#: (half as many int32 lanes as float32 lanes, and no fused multiply-add):
+#: the rate of one of the two pipes that take integer work, the ALU pipe
+#: and the FMA pipe (IMAD, and IMAD.IADD for an add), which run side by side.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 FP32_FLOPS_PER_S = 67e12
@@ -319,15 +324,66 @@ def wide_exact_smem(m: int, count_bytes: int) -> tuple[int, bool, int]:
     return smem, whole <= 232448, min(4, max(1, 16 // (233472 // (smem + 1024))))
 
 
+#: Instructions an S1 op issues a lane-iteration with csrc/micro.cu's guard in
+#: place (M = 9), on the SM's integer ALU pipe and on its FMA pipe, read off
+#: the micro library's SASS (``smoke_out/micro.sass``): sel3 an IADD (FMA)
+#: and two ISETPs (ALU) an (i, j), two SELs (ALU) and an IADD (FMA) an
+#: entry; sel_flat the same six an entry; reshape one IADD3 (x + acc + 1)
+#: an entry; repeat and tile one IADD a head row (the broadcast moves no
+#: arithmetic); segsum eight IADD3s and an IADD a row (its 17 adds);
+#: contract one IMAD a cp entry. The threads' own copies of acc[0]'s chain
+#: and the loop counter are not the op's work and are not counted.
+MICRO_PIPES = dict(sel3=(81 * 2 + 729 * 2, 81 + 729), sel_flat=(729 * 4, 729 * 2),
+                   reshape=(81, 0), repeat=(0, 9), tile=(0, 9), segsum=(9 * 8, 9),
+                   contract=(0, 729))
+
+
 def micro_ops(op: str, r: int, iters: int) -> int:
-    """int32 operations of ``iters`` iterations of an S1 op at ``r`` lanes,
-    counted from csrc/micro.cu (M = 9): sel3 3 per (i, j) and 3 per entry;
-    sel_flat 6 per entry; reshape 2 per entry; repeat and tile 9 adds (the
-    broadcast moves no arithmetic); segsum 81 adds and 72 for the row sums;
-    contract a multiply and an add per cp entry."""
-    per = dict(sel3=81 * 3 + 729 * 3, sel_flat=729 * 6, reshape=81 * 2, repeat=9, tile=9,
-               segsum=81 + 72, contract=729 * 2)[op]
-    return per * r * iters
+    """int32 instructions of ``iters`` iterations of an S1 op at ``r`` lanes
+    on the busier of its two pipes (``MICRO_PIPES``): each pipe takes 16
+    lanes an SM sub-partition a clock and the two run side by side, so the
+    busier one bounds the op at ``INT32_OPS_PER_S``."""
+    return max(MICRO_PIPES[op]) * r * iters
+
+
+def _micro_kernel(entry: str, ops) -> str:
+    """The S1 op whose kernel a mangled entry name of csrc/micro.cu names."""
+    return next(op for op in ops if f"{len(op) + 7}{op}_kernel" in entry)
+
+
+def micro_ptxas(log: str, ops) -> dict[str, tuple[int, int]]:
+    """Each S1 kernel's registers and spill stores (bytes) from ptxas's
+    report in the micro library's build log."""
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        out[_micro_kernel(chunk.split("'")[1], ops)] = (
+            int(re.search(r"Used (\d+) registers", chunk).group(1)),
+            int(re.search(r"(\d+) bytes spill stores", chunk).group(1)))
+    return out
+
+
+def micro_loop_opcodes(sass: str, ops) -> dict[str, list[dict[str, int]]]:
+    """Each S1 kernel's iteration loops in the micro library's SASS (each
+    span from a backward branch's target to the branch: a loop unrolled 4
+    times, then its remainder of one iteration, or the one loop) as opcode
+    counts, predicates dropped: what the loop issues on the thread's
+    entries, its copy of acc[0]'s chain and the loop counter."""
+    loops = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        found = []
+        for i, (addr, text) in enumerate(ins):
+            m = re.search(r"BRA\b.*0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                counts: dict[str, int] = {}
+                for at, body in ins[:i + 1]:
+                    if at >= int(m.group(1), 16):
+                        opcode = re.sub(r"^@!?U?P\w+\s+", "", body).split()[0]
+                        counts[opcode] = counts.get(opcode, 0) + 1
+                found.append(counts)
+        loops[_micro_kernel(func.splitlines()[0], ops)] = found
+    return loops
 
 
 def timed(torch, fn, repeat: int) -> float:
@@ -577,6 +633,9 @@ def main() -> None:
                 f"{b} B and {w} warps ({kind} counts{'' if whole else ', cp in device memory'})"
                 for kind, (b, whole, w) in (("int16", wide_exact_smem(m, 2)),
                                             ("int32", wide_exact_smem(m, 4))))
+        if name == build.MICRO:
+            smem = "; " + ", ".join(f"{op} {r} registers, spill stores {sp} B" for op, (r, sp)
+                                    in micro_ptxas(log, micro.OPS).items())
         print(f"[build] {name} M = {m} K = {k} -> {path.name} "
               f"({secs:.1f} s compiling): {max(regs, default=0)} registers, spill stores "
               f"{min(spills, default=0)}-{max(spills, default=0)} B over {len(regs)} "
@@ -592,6 +651,14 @@ def main() -> None:
                               capture_output=True, text=True, check=True, timeout=300).stdout
         record[f"sass_global_loads_{name}_m9"] = sass.count("LDG")
         print(f"[build] {name} M = 9: {sass.count('LDG')} global loads (LDG) in its SASS")
+    # S1: each kernel's iteration loop as issued, against MICRO_PIPES.
+    sass = subprocess.run([str(cuobjdump), "-sass", str(built[build.MICRO, 0, 0][0])],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    (OUT / "micro.sass").write_text(sass)
+    record["micro_loop_opcodes"] = micro_loop_opcodes(sass, micro.OPS)
+    for op, loops in record["micro_loop_opcodes"].items():
+        print(f"[build] S1 {op}: its loops issue " + "; ".join(
+            f"{sum(c.values())} instructions a thread {c}" for c in loops))
 
     def stamp(phase: str) -> None:
         """Seconds since the start at the end of ``phase``, printed and kept."""
@@ -1777,7 +1844,9 @@ def main() -> None:
     # `python -m tpusim_torch.micro` at R = 8,192 lanes and N = 512
     # iterations (micro.main), the launch counts set to 0 just before and read
     # just after; then each op's kernel against its plain version on the same
-    # inputs, the plain version timed.
+    # inputs, the plain version timed. sel_flat, sel3 and contract do enough
+    # work a launch to scale with N: a loop the compiler folded would read
+    # floor-limited there.
     micro_r, micro_n = 8192, 512
     for k in micro.launches:
         micro.launches[k] = 0
@@ -1798,13 +1867,17 @@ def main() -> None:
         bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                                  (ops / INT32_OPS_PER_S * 1e3, "operations"))
         ms = row["us_per_iter"] * micro_n / 1e3
+        check(op not in ("sel_flat", "sel3", "contract") or not row["floor_limited"],
+              f"S1 {op}: floor-limited at N = {micro_n} (N/8 scaling ratio "
+              f"{row['scaling_ratio_8x']:.2f}): the loop does not scale with N")
         stats[f"micro_{op}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, row=row)
-        print(f"[S1 {op}] R = {micro_r}, N = {micro_n}: kernel == plain; {row['us_per_iter']:.3f} "
-              f"us/iter ({ms:.3f} ms a launch), N/8 scaling ratio {row['scaling_ratio_8x']:.2f}"
+                                    bound_by=bound_by, share_of_bound=bound_ms / ms, row=row)
+        print(f"[S1 {op}] R = {micro_r}, N = {micro_n}: kernel == plain; {row['us_per_iter']:.4f} "
+              f"us/iter ({ms:.4f} ms a launch), N/8 scaling ratio {row['scaling_ratio_8x']:.2f}"
               f"{' (floor-limited)' if row['floor_limited'] else ''}; plain {plain_ms:.1f} ms; "
-              f"bound {bound_ms:.4f} ms by {bound_by}; {micro_launches[op]} launches by the "
-              f"command; on {card}")
+              f"bound {bound_ms:.4f} ms by {bound_by} ({MICRO_PIPES[op]} ALU and FMA pipe "
+              f"instructions a lane-iteration), {100 * bound_ms / ms:.1f} % of it; "
+              f"{micro_launches[op]} launches by the command; on {card}")
     stamp("S1")
     record["smoke_s"] = time.perf_counter() - t_all
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=2))

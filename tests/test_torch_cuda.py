@@ -5,6 +5,9 @@ no JAX (the machine with the card has none), so on the card run it without
 the suite's conftest, which configures JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+``-k micro`` runs the layout micro-benchmarks' tests alone (S1: one nvcc,
+seconds).
 """
 
 from __future__ import annotations
@@ -774,7 +777,7 @@ def knob_libraries():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from tpusim_torch.csrc import build
 
-    libs = {(build.MICRO, 0, 0)}
+    libs = set()
     for knobs in KNOBS:
         for network, mode, k, capacity in KNOB_CASES.values():
             network = _hetero32() if network == "hetero32" else network
@@ -846,17 +849,33 @@ def test_raw_word_mapping_over_all_uniforms(cuda, knob_libraries):
     assert torch.equal(got[0], winners_from_bits(edge, thr))
 
 
+@pytest.fixture(scope="module")
+def micro_library():
+    """The layout micro-benchmarks' library alone (S1), so that ``-k micro``
+    builds nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from tpusim_torch.csrc import build
+
+    build.build([(build.MICRO, 0, 0)])
+
+
+@pytest.mark.parametrize("iters", [0, 1, 64])
+@pytest.mark.parametrize("lanes", [1, 127, 129, 1000, 8193])
 @pytest.mark.parametrize("op", ["sel3", "sel_flat", "reshape", "repeat", "tile", "segsum",
                                 "contract"])
-def test_micro_kernel_equals_plain(cuda, knob_libraries, op):
+def test_micro_kernel_equals_plain(cuda, micro_library, op, lanes, iters):
+    """Each S1 kernel == its plain version: one lane, a ragged last block
+    (127, 129, 1,000) and a group of entries split across blocks (8,193
+    lanes), at 0, 1 and 64 iterations."""
     from tpusim_torch import micro
 
-    inputs = micro.make_inputs(op, 1000, "cuda")
+    inputs = micro.make_inputs(op, lanes, "cuda")
     before = micro.launches[op]
-    got = micro.run(op, inputs, 64)
+    got = micro.run(op, inputs, iters)
     torch.cuda.synchronize()
     assert micro.launches[op] == before + 1
-    assert torch.equal(got, micro.run_plain(op, inputs, 64))
+    assert torch.equal(got, micro.run_plain(op, inputs, iters))
 
 
 #: Digests of the SASS (``cuobjdump -sass``, addresses, encodings and the

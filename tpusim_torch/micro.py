@@ -61,6 +61,10 @@ ROW_NAMES = {
     "segsum": "segsum_reshape", "contract": "contract_cpb",
 }
 
+#: The device-side wait ahead of each timed launch, in clock cycles (about
+#: 1 ms at 2 GHz): longer than the host takes to dispatch the call.
+_DISPATCH_WAIT_CYCLES = 2_000_000
+
 #: Kernel launches so far, by op; the wrapper adds one per launch.
 launches = dict.fromkeys(OPS, 0)
 
@@ -161,22 +165,28 @@ def run(op: str, inputs: list[torch.Tensor], iters: int) -> torch.Tensor:
 
 def time_op(op: str, inputs: list[torch.Tensor], iters: int, repeats: int = 3) -> list[float]:
     """Seconds of ``repeats`` calls of :func:`run` after one warm-up call: by
-    CUDA events on the card, by the host clock on the CPU."""
+    CUDA events on the card, by the host clock on the CPU. On the card each
+    timed launch is queued behind a short wait on the device
+    (``torch.cuda._sleep``), so the host's dispatch of the call (tens of µs
+    of Python and ctypes) falls inside the wait and the events hold the
+    launch alone."""
     cuda = inputs[0].is_cuda
     run(op, inputs, iters)
-    times = []
-    for _ in range(repeats):
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if cuda:
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  for _ in range(repeats)]
+        for start, end in events:
+            torch.cuda._sleep(_DISPATCH_WAIT_CYCLES)
             start.record()
             run(op, inputs, iters)
             end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            run(op, inputs, iters)
-            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) / 1e3 for start, end in events]
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run(op, inputs, iters)
+        times.append(time.perf_counter() - t0)
     return times
 
 
