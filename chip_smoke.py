@@ -25,7 +25,9 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    micro-benchmarks (S1), and the xoroshiro path's row sampler (X1) and
    consumed-row event loops (X2: fast and exact, each with the ring, and
    exact packed with the ring, at M = 9), one ``nvcc`` per library, all
-   started together, each library's registers and spills printed;
+   started together, each library's registers and spills printed, and
+   X1's launch shape, shared memory a block and the instructions its loops
+   issue (``smoke_out/xoroshiro.sass``, against ``XORO_PIPES``);
 3. sampler: threefry words, winner indices and the interval mapping on the
    card bit-equal to the CPU's (the mapping over all 2^24 uniforms at the
    600 s and 60 s means);
@@ -147,14 +149,16 @@ Phases, each of which raises on failure (exit code 1, and no result line):
 11. the xoroshiro path (``rng="xoroshiro"``) and the native oracle: X1
    against its plain version on a main-path chunk (8,192 runs x 1,856
    steps, from chunk 0's streams and consumed counts), every row and
-   stream word, timed, its bound counted (``xoro_ops``); its interval
+   stream word, timed beside the thread-a-run kernel's time it replaced,
+   its bound counted by pipe (``xoro_pipes``); its interval
    mapping alone over 2^24 words at the 600 s, 60 s and 1 s means against
    the CPU's, and the card's own float64 ``log1p`` against glibc's (what
    the transcription buys), and the transcription against this machine's
    C library; X2 against its plain version in each form the paths run
    (fast, exact selfish and honest, with the ring, packed with the ring)
    at 1,000 runs with ragged ends, and the fast and exact main-path
-   chunks on ``PLAIN_RUNS``, timed and counted as K1's and K2's; the
+   chunks on ``PLAIN_RUNS``, timed and counted as K1's and K2's, and
+   printed beside K1's and K2s's times in this run; the
    selfish and default years with xoroshiro (32,768 runs) through
    ``api.run_simulation``, X1 and X2 each launched once a chunk and
    nothing else, within the main path's tolerances of the README's
@@ -294,27 +298,48 @@ def raw_map_int_ops(m: int) -> int:
     return 4 * m + 5
 
 
-#: X1's operations (csrc/xoroshiro.cu): int32 operations per generator
-#: step (two for each 64-bit add, shift, rotation and xor), float64
-#: operations per interval word (the mapping and glibc's log1p on its two
-#: paths: -0.2929 < -u, k = 0, and the normalized reduction) and int32
-#: operations per threshold compared in a winner (a 64-bit compare and a
-#: select).
-XORO_STEP_INT_OPS = 18
-XORO_MAP_FLOPS_K0, XORO_MAP_FLOPS_K = 27, 36
-XORO_THRESHOLD_INT_OPS = 3
+#: X1's own work, as (ALU, FMA, FP64) pipe instructions a lane, read off the
+#: X1 library's SASS (``smoke_out/xoroshiro.sass``; phase 2 prints the
+#: loops): on the integer ALU pipe LOP3, SHF, ISETP, SEL, IADD3, VIADD, LEA
+#: and the float compares and selects FSETP and FSEL; on the FMA pipe IMAD
+#: in its arithmetic forms (SHL, X) and FFMA; on the FP64 pipe DADD, DMUL,
+#: DFMA, DSETP, FRND and the conversions I2F.F64 and F2I.F64. Only the
+#: function's own instructions count, as in MICRO_PIPES: not the loop
+#: counters, the address arithmetic, the loads and stores of shared and
+#: device memory (the ring's, the thresholds', the rows'), the register and
+#: constant moves, the branches, nor MUFU.RCP64H (on none of the three).
+#: - advance: a generator step that only moves the state, a stream;
+#: - draw: a generator step that also gives its word;
+#: - threshold: a threshold compared with the winner's word and the winner
+#:   selected (two ISETPs and a SEL);
+#: - pair: a mapped pair's uniform (the word's top 53 bits to float64,
+#:   scaled and negated), log1p's entry tests, and after it the ns and ms
+#:   (the scaling by the mean, a division by 1e6 in its inline sequence,
+#:   two floors, the cap and the conversion);
+#: - interval_k0 and interval_k: log1p's body on its two paths, k = 0 (-u >
+#:   -0.2929) and the normalized reduction, each division its inline
+#:   sequence (the rare slow-path call not counted); where the reduction
+#:   branches on the data (hu < 0x6a09e), the shorter side.
+XORO_PIPES = dict(advance=(9, 1, 0), draw=(15, 3, 0), threshold=(3, 0, 0),
+                  pair=(9, 1, 17), interval_k0=(4, 1, 27), interval_k=(13, 2, 44))
 #: An interval word takes log1p's k = 0 path when -log1p(-u) < -log1p(-0.2929).
 XORO_K0_LOG = -math.log1p(-0.29289)
+#: X1's time on the main path's chunk as the kernel it replaced, a thread a
+#: run, ran there (NVIDIA H100 80GB HBM3, 700.00 W): printed beside the new
+#: time, not part of the record.
+X1_THREAD_A_RUN_MS = 1.4204
 
 
-def xoro_ops(m: int, consumed: int, words: int, k0_words: int) -> tuple[int, int]:
-    """X1's (int32, float64) operations: both streams advanced by the
-    ``consumed`` draws, ``words`` pairs drawn, the winner compared against
-    M - 1 thresholds, ``k0_words`` of the interval words on log1p's k = 0
-    path."""
-    ints = 2 * XORO_STEP_INT_OPS * (consumed + words) + words * XORO_THRESHOLD_INT_OPS * (m - 1)
-    flops = k0_words * XORO_MAP_FLOPS_K0 + (words - k0_words) * XORO_MAP_FLOPS_K
-    return ints, flops
+def xoro_pipes(m: int, consumed: int, words: int, k0_words: int) -> tuple[int, int, int]:
+    """X1's (ALU, FMA, FP64) instructions, in lanes: both streams advanced by
+    the ``consumed`` draws and ``words`` pairs drawn (``XORO_PIPES``), each
+    winner against M - 1 thresholds, ``k0_words`` of the interval words on
+    log1p's k = 0 path."""
+    counts = [(XORO_PIPES["advance"], 2 * consumed), (XORO_PIPES["draw"], 2 * words),
+              (XORO_PIPES["threshold"], words * (m - 1)), (XORO_PIPES["pair"], words),
+              (XORO_PIPES["interval_k0"], k0_words),
+              (XORO_PIPES["interval_k"], words - k0_words)]
+    return tuple(round(sum(per[p] * n for per, n in counts)) for p in range(3))
 
 
 def onehot_cp_loads(torch, m: int, a):
@@ -410,28 +435,32 @@ def micro_ptxas(log: str, ops) -> dict[str, tuple[int, int]]:
     return out
 
 
+def sass_loops(func: str) -> list[dict[str, int]]:
+    """The loops of one function's SASS (each span from a backward branch's
+    target to the branch: a loop unrolled 4 times, then its remainder of one
+    iteration, or the one loop; an outer loop's span holds its inner ones)
+    as opcode counts, predicates dropped."""
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+    found = []
+    for i, (addr, text) in enumerate(ins):
+        m = re.search(r"BRA\b.*0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            counts: dict[str, int] = {}
+            for at, body in ins[:i + 1]:
+                if at >= int(m.group(1), 16):
+                    opcode = re.sub(r"^@!?U?P\w+\s+", "", body).split()[0]
+                    counts[opcode] = counts.get(opcode, 0) + 1
+            found.append(counts)
+    return found
+
+
 def micro_loop_opcodes(sass: str, ops) -> dict[str, list[dict[str, int]]]:
-    """Each S1 kernel's iteration loops in the micro library's SASS (each
-    span from a backward branch's target to the branch: a loop unrolled 4
-    times, then its remainder of one iteration, or the one loop) as opcode
-    counts, predicates dropped: what the loop issues on the thread's
-    entries, its copy of acc[0]'s chain and the loop counter."""
-    loops = {}
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        ins = [(int(a, 16), t.strip()) for a, t in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-        found = []
-        for i, (addr, text) in enumerate(ins):
-            m = re.search(r"BRA\b.*0x([0-9a-f]+)", text)
-            if m and int(m.group(1), 16) < addr:
-                counts: dict[str, int] = {}
-                for at, body in ins[:i + 1]:
-                    if at >= int(m.group(1), 16):
-                        opcode = re.sub(r"^@!?U?P\w+\s+", "", body).split()[0]
-                        counts[opcode] = counts.get(opcode, 0) + 1
-                found.append(counts)
-        loops[_micro_kernel(func.splitlines()[0], ops)] = found
-    return loops
+    """Each S1 kernel's iteration loops in the micro library's SASS
+    (:func:`sass_loops`): what the loop issues on the thread's entries, its
+    copy of acc[0]'s chain and the loop counter."""
+    return {_micro_kernel(func.splitlines()[0], ops): sass_loops(func)
+            for func in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
 def timed(torch, fn, repeat: int) -> float:
@@ -674,7 +703,7 @@ def main() -> None:
         if lib[0] not in (build.MICRO, build.XORO):
             build.load_library(*lib)
     build.load_micro()
-    build.load_xoro()
+    xlib = build.load_xoro()
     record["build_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_build.log").write_text("".join(
         f"== {n}, M = {m}, K = {k}\n{log}"
@@ -721,6 +750,19 @@ def main() -> None:
     for op, loops in record["micro_loop_opcodes"].items():
         print(f"[build] S1 {op}: its loops issue " + "; ".join(
             f"{sum(c.values())} instructions a thread {c}" for c in loops))
+    # X1: its shared memory a block, and its loops as issued, against
+    # XORO_PIPES (the advance, the draws, the mapping and its thresholds).
+    sass = subprocess.run([str(cuobjdump), "-sass", str(built[build.XORO, 0, 0][0])],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    (OUT / "xoroshiro.sass").write_text(sass)
+    record["xoroshiro_loop_opcodes"] = sass_loops(sass)
+    shape = build.xoro_shape(xlib)
+    x_smem = [build.xoro_smem_bytes(xlib, 9, per_run) for per_run in (False, True)]
+    print(f"[build] X1 {shape}: {32 * (shape['kGenWarps'] + shape['kMapWarps'])} threads a "
+          f"block, shared memory a block as its launcher asks {x_smem[0]} B (9 miners), "
+          f"{x_smem[1]} B (per run); its loops issue " + "; ".join(
+              f"{sum(c.values())} instructions a thread {c}"
+              for c in record["xoroshiro_loop_opcodes"]))
 
     def stamp(phase: str) -> None:
         """Seconds since the start at the end of ``phase``, printed and kept."""
@@ -1989,24 +2031,27 @@ def main() -> None:
     x_words = runs_x * xe.chunk_steps
     k0_words = int((x_got[0][:, 1].double() < XORO_K0_LOG * xcfg.network.block_interval_s
                     * 1e3).sum())
-    x_int, x_flops = xoro_ops(xe.n_miners, x_consumed, x_words, k0_words)
+    x_alu, x_fma, x_fp64 = xoro_pipes(xe.n_miners, x_consumed, x_words, k0_words)
     x_bytes = 2 * xaux[3].numel() * 4 + xaux[4].numel() * 4 + x_got[0].numel() * 4 + sum(
         x.numel() * x.element_size() for x in xsmp)
     x_bytes_ms = x_bytes / HBM_BYTES_PER_S * 1e3
-    # Integer and float64 work issue on different pipes: the least time is
-    # the larger of the two.
-    x_ops_ms = max(x_int / INT32_OPS_PER_S, x_flops / FP64_FLOPS_PER_S) * 1e3
+    # The three pipes issue side by side: the least time is the busiest
+    # one's. The FP64 pipe issues one instruction a lane where the data
+    # sheet's rate counts a multiply-add as two operations.
+    x_ops_ms = max(x_alu / INT32_OPS_PER_S, x_fma / INT32_OPS_PER_S,
+                   x_fp64 / (FP64_FLOPS_PER_S / 2)) * 1e3
     x1_bound_ms, x1_bound_by = max((x_bytes_ms, "bytes"), (x_ops_ms, "operations"))
     stats["xoroshiro_rows"] = dict(max_abs_err=x1_err, ms=x1_ms, plain_ms=x1_plain_ms,
                                    bound_ms=x1_bound_ms, bound_by=x1_bound_by,
                                    consumed=x_consumed, words=x_words, k0_words=k0_words,
-                                   int_ops=x_int, float64_ops=x_flops, bytes=x_bytes)
+                                   alu=x_alu, fma=x_fma, fp64=x_fp64, bytes=x_bytes)
     print(f"[X1] main-path chunk ({runs_x} runs x {xe.chunk_steps} steps, {x_consumed} draws "
           f"consumed by chunk 0): kernel == plain, every row and stream word; kernel "
-          f"{x1_ms:.4f} ms, plain {x1_plain_ms:.1f} ms, bound {x1_bound_ms:.4f} ms by "
-          f"{x1_bound_by} ({x_bytes / 1e6:.1f} MB -> {x_bytes_ms:.4f} ms; {x_int} int32 ops, "
-          f"{x_flops} float64 ops ({k0_words} words on log1p's k = 0 path) -> "
-          f"{x_ops_ms:.4f} ms); on {card}")
+          f"{x1_ms:.4f} ms (a thread a run: {X1_THREAD_A_RUN_MS} ms), plain "
+          f"{x1_plain_ms:.1f} ms, bound {x1_bound_ms:.4f} ms by {x1_bound_by} "
+          f"({100 * x1_bound_ms / x1_ms:.1f} % of it; {x_bytes / 1e6:.1f} MB -> "
+          f"{x_bytes_ms:.4f} ms; ALU {x_alu}, FMA {x_fma}, FP64 {x_fp64} instruction lanes, "
+          f"{k0_words} interval words on log1p's k = 0 path -> {x_ops_ms:.4f} ms); on {card}")
     del x_got, x_want
     # The mapping alone: the first interval word of 2^24 runs' streams.
     n_map = 2**24
@@ -2094,6 +2139,12 @@ def main() -> None:
                                                    "event_loop_fast_consumed")
     stats["event_loop_exact_consumed"] = main_chunk("event_loop_exact_consumed", xe,
                                                     "event_loop_exact_consumed")
+    x2_over_k1 = stats["event_loop_fast_consumed"]["ms"] / stats["event_loop_fast"]["ms"] - 1
+    stats["event_loop_fast_consumed"]["over_k1"] = x2_over_k1
+    print(f"[X2] fast main-path chunk {stats['event_loop_fast_consumed']['ms']:.3f} ms against "
+          f"K1's {stats['event_loop_fast']['ms']:.3f} ms in this run ({100 * x2_over_k1:+.1f} %); "
+          f"exact {stats['event_loop_exact_consumed']['ms']:.3f} ms against K2s's "
+          f"{stats['event_loop_exact']['ms']:.3f} ms; on {card}")
     stamp("X1 and X2 against their plain versions")
 
     # The full-width years: the selfish roster (exact) and the default

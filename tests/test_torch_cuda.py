@@ -970,17 +970,22 @@ def test_shards_on_every_card_equal_one_card(cuda):
 # ---------------------------------------------------------------------------
 # The xoroshiro path: the row sampler X1 and the consumed-row event loops X2.
 
-#: X1's cases: run counts below one 128-thread block, of a partial last
-#: block and of many blocks; uniform and per-run rosters.
+#: X1's cases: run counts of one run, of a partial last 32-run block, of
+#: many blocks and a partial one; uniform and per-run rosters; 1 step, a
+#: tile less and more one step (the tile as the built kernel gives it), and
+#: several tiles (the ring wraps).
+@pytest.mark.parametrize("steps", ["1", "tile-1", "tile+1", "320"])
 @pytest.mark.parametrize("runs", [1, 17, 1000, 8193])
 @pytest.mark.parametrize("per_run", [False, True], ids=["uniform", "per-run"])
-def test_xoro_rows_kernel_equals_plain(cuda, runs, per_run):
+def test_xoro_rows_kernel_equals_plain(cuda, runs, per_run, steps):
     """X1 from mid-run streams (each run a different number of draws
     consumed, 0 and the whole chunk included): every row and every stream
     word equal to the plain version's."""
     from tpusim_torch import xoroshiro
+    from tpusim_torch.csrc import build
 
-    steps = 320
+    tile = build.xoro_shape(build.load_xoro())["kTile"]
+    steps = {"1": 1, "tile-1": tile - 1, "tile+1": tile + 1, "320": 320}[steps]
     streams = torch.from_numpy(xoroshiro.pack_run_streams(7, 5, runs).view(np.int32)).cuda()
     consumed = torch.from_numpy(
         np.random.default_rng(runs).integers(0, steps + 1, runs).astype(np.int32)).cuda()
@@ -1071,12 +1076,9 @@ def consumed_libraries():
     build.build(sorted(libs))
 
 
-@pytest.mark.parametrize("runs", [1, 3, 17, 1000])
-@pytest.mark.parametrize("case", list(CONSUMED_CASES))
-def test_consumed_row_kernel_at_any_run_count(cuda, consumed_libraries, case, runs):
-    """X2 in each form the xoroshiro paths run, from a mid-run state (one
-    plain chunk) with ragged chunk ends, on X1's rows: every leaf and the
-    consumed counts equal to the plain version's."""
+def _consumed_chunk(case: str, runs: int):
+    """A CONSUMED_CASES engine after one plain chunk: the engine, its state,
+    its aux and the chunk's rows (X1's plain version)."""
     from tpusim_torch.xoroshiro import xoro_rows_plain
 
     network, mode, k, capacity, options, m = _consumed_case(case)
@@ -1095,14 +1097,17 @@ def test_consumed_row_kernel_at_any_run_count(cuda, consumed_libraries, case, ru
     state, aux = eng._init(keys)
     cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
     state, aux, _ = eng._chunk(state, aux, cap, keys, 0)
-    i = torch.arange(runs, device="cuda", dtype=torch.int32)
-    cap = torch.where(i % 3 == 1, (i + 1) * 1600, cap)  # early in the chunk
-    cap = torch.where(i % 7 == 2, (i + 1) * (2**28 // runs), cap)  # anywhere in it
-    cap = torch.where(i % 5 == 4, 0, cap).to(torch.int32)  # at once
-    ctr, fr, _, streams, consumed = aux
-    rows = xoro_rows_plain(streams, consumed, eng.xoro_sampler(), eng.chunk_steps)[0]
+    rows = xoro_rows_plain(aux[3], aux[4], eng.xoro_sampler(), eng.chunk_steps)[0]
+    return eng, state, aux, rows
+
+
+def _consumed_kernel_equals_plain(case: str, eng, rows, cap, leaves, aux):
+    """X2 on the card against its plain version on one chunk: every leaf and
+    the consumed counts; returns the counts."""
+    network, mode, k, capacity, options, m = _consumed_case(case)
+    ctr, fr = aux[:2]
     prop, selfish = eng.roster()
-    args = (rows, cap, prop, state_to_kernel(state), counters_to_kernel(ctr), selfish,
+    args = (rows, cap, prop, leaves, counters_to_kernel(ctr), selfish,
             None if fr is None else flight_to_kernel(fr))
     opts = dict(onehot="consensus_gather" in options, consumed_rows=True)
     kernel = _consumed_kernel(m, mode, capacity, options, network == "packed")
@@ -1117,7 +1122,42 @@ def test_consumed_row_kernel_at_any_run_count(cuda, consumed_libraries, case, ru
                           want[0] + want[1] + (want[2] or ()) + want[3:]):
         assert g.dtype == w.dtype, name
         assert torch.equal(g, w), name
-    assert int(got[3].max()) > 0 or runs < 17
+    return got[3]
+
+
+@pytest.mark.parametrize("runs", [1, 3, 17, 1000])
+@pytest.mark.parametrize("case", list(CONSUMED_CASES))
+def test_consumed_row_kernel_at_any_run_count(cuda, consumed_libraries, case, runs):
+    """X2 in each form the xoroshiro paths run, from a mid-run state (one
+    plain chunk) with ragged chunk ends, on X1's rows: every leaf and the
+    consumed counts equal to the plain version's."""
+    eng, state, aux, rows = _consumed_chunk(case, runs)
+    i = torch.arange(runs, device="cuda", dtype=torch.int32)
+    cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
+    cap = torch.where(i % 3 == 1, (i + 1) * 1600, cap)  # early in the chunk
+    cap = torch.where(i % 7 == 2, (i + 1) * (2**28 // runs), cap)  # anywhere in it
+    cap = torch.where(i % 5 == 4, 0, cap).to(torch.int32)  # at once
+    used = _consumed_kernel_equals_plain(case, eng, rows, cap, state_to_kernel(state), aux)
+    assert int(used.max()) > 0 or runs < 17
+
+
+@pytest.mark.parametrize("runs", [3, 1000])
+@pytest.mark.parametrize("case", ["fast", "fast-w1", "fast-bursty-ring", "fast-packed",
+                                  "fast-packed-ring", "selfish"])
+def test_consumed_row_kernel_on_consecutive_finds(cuda, consumed_libraries, case, runs):
+    """X2 where runs find on consecutive steps: every other run's intervals
+    are 0 ms, and every fourth starts the chunk on a find (its next block
+    due now), so it finds on every step and consumes the chunk's last row
+    (its count reaches the chunk's steps); the other runs are as X1 drew
+    them. Every leaf and the consumed counts equal the plain version's."""
+    eng, state, aux, rows = _consumed_chunk(case, runs)
+    i = torch.arange(runs, device="cuda")
+    rows[:, 1, i % 2 == 0] = 0
+    leaves = list(state_to_kernel(state))
+    leaves[1] = torch.where(i % 4 == 0, leaves[0], leaves[1]).contiguous()  # nbt = t
+    cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
+    used = _consumed_kernel_equals_plain(case, eng, rows, cap, tuple(leaves), aux)
+    assert bool((used[i % 4 == 0] == eng.chunk_steps).all())
 
 
 @pytest.mark.parametrize("roster", ["default", "selfish"])

@@ -52,7 +52,8 @@ from pathlib import Path
 
 __all__ = [
     "SOURCES", "BUILD_DIR", "NVCC_FLAGS", "NARROW_MAX_MINERS", "MAP_ENTRY", "MICRO", "XORO",
-    "build", "entry_point", "load_library", "load_micro", "load_xoro",
+    "XORO_SHAPE", "bind_xoro", "build", "entry_point", "load_library", "load_micro", "load_xoro",
+    "xoro_shape", "xoro_smem_bytes",
 ]
 
 CSRC = Path(__file__).resolve().parent
@@ -250,7 +251,29 @@ def load_xoro() -> ctypes.CDLL:
     """The xoroshiro row sampler's library (X1, ``xoroshiro.cu``), built on
     first use: ``tpusim_xoro_rows(streams_in, consumed, thr_hi, thr_lo,
     mean, n_miners, per_run, steps, n_runs, rows, streams_out, stream)``."""
-    lib = ctypes.CDLL(str(build([(XORO, 0, 0)])[XORO, 0, 0][0]))
+    return bind_xoro(ctypes.CDLL(str(build([(XORO, 0, 0)])[XORO, 0, 0][0])))
+
+
+#: X1's launch shape, in the order ``tpusim_xoro_shape`` gives it: runs a
+#: block, steps a tile, tiles in the ring, generator and mapping warps.
+XORO_SHAPE = ("kRuns", "kTile", "kRing", "kGenWarps", "kMapWarps")
+
+
+def xoro_shape(lib: ctypes.CDLL) -> dict[str, int]:
+    """X1's launch shape as ``lib``, a build of ``xoroshiro.cu``, launches it."""
+    shape = (ctypes.c_int * len(XORO_SHAPE))()
+    lib.tpusim_xoro_shape(shape)
+    return dict(zip(XORO_SHAPE, shape))
+
+
+def xoro_smem_bytes(lib: ctypes.CDLL, n_miners: int, per_run: bool) -> int:
+    """The dynamic shared memory of one X1 block, as ``lib``'s launcher
+    asks for it at ``n_miners`` miners, uniform or per run."""
+    return lib.tpusim_xoro_smem_bytes(n_miners, int(per_run))
+
+
+def bind_xoro(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``xoroshiro.cu``, with its entry points' types set."""
     lib.tpusim_xoro_rows.argtypes = [_vp] * 5 + [_i] * 4 + [_vp] * 3
     lib.tpusim_xoro_rows.restype = _i
     lib.tpusim_cuda_error_string.argtypes = [_i]

@@ -158,10 +158,11 @@
 // kernel (it runs rng="xoroshiro" on its scan engine, tpusim/engine.py:588-624
 // body_wide): the rows are a run's next draws in the order it consumes them
 // (the row sampler X1, xoroshiro.cu), so a run reads row c, its finds so far
-// in the chunk, where the others read row s, loads row c + 1 once a find
-// consumes row c, and lane 0 writes the final count to `consumed_out`, which
-// X1 advances the run's streams by before the next chunk. What bounds it:
-// K1's. Every statement the flag adds sits under `#if TPUSIM_CONSUMED_ROWS`.
+// in the chunk, where the others read row s, and lane 0 writes the final
+// count to `consumed_out`, which X1 advances the run's streams by before the
+// next chunk. A find loads the next row a step ahead, through a pointer that
+// moves a row pair a find (no index multiplied out each step). What bounds
+// it: K1's. Every statement the flag adds sits under `#if TPUSIM_CONSUMED_ROWS`.
 
 #include <type_traits>
 
@@ -398,6 +399,7 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
     }
 #if TPUSIM_CONSUMED_ROWS
     int used = 0;  // the rows this run's finds consumed this chunk (X2)
+    const int* next_row = rows + r;  // row `used`'s winner entry
 #endif
     for (int s = 0; s < steps; ++s) {
       // An inactive step changes nothing, and a run stays inactive to the
@@ -409,10 +411,11 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
       const int w0 = row0, w1 = row1;
 #if TPUSIM_CONSUMED_ROWS
       // X2: the row is the run's next draw, and only a find consumes it;
-      // the next find reads the row after it.
+      // the next find reads the row after it, one row pair further on.
       if (live && active && t == nbt && ++used < steps) {
-        row0 = rows[2L * used * R + r];
-        row1 = rows[(2L * used + 1) * R + r];
+        next_row += 2 * R;
+        row0 = next_row[0];
+        row1 = next_row[R];
       }
 #else
       if (live && s + 1 < steps) {
