@@ -228,7 +228,10 @@ Phases, each of which raises on failure (exit code 1, and no result line):
    ring's too), and the main-path chunks of K1s, K3fs (1,024-row ring) and
    K4fs (four selfish-hashrate points at --mode fast, 8,192 runs), timed
    and counted (``fast_selfish_ops``: K1's operations plus the race and
-   the reveal); (ii) the main paths: the fast selfish year (32,768 runs)
+   the reveal), printed beside K1's, K4f's and K3f's times in this run,
+   with the warp-steps of K1s's and K4fs's chunks in which a run of the
+   warp reveals or holds its private chain (``fast_selfish_step``); (ii)
+   the main paths: the fast selfish year (32,768 runs)
    through ``api.run_simulation``, K1s once a chunk and nothing else,
    miner 0's share and stale rate within the exact year's tolerances of
    the README's; ``trace --mode fast`` on the selfish roster with
@@ -371,6 +374,31 @@ def fast_selfish_ops(finds: int, sel_active: int, active: int, sel_finds: int,
     each reveal the chunk's data made (races not among them)."""
     return (sel_active * 10 + active + finds + sel_finds * 5 + sel_adopts
             + reveals * (5 * k + 20))
+
+
+def fast_selfish_step(torch, sel_mr, ow, adopted, active, npriv0, npriv1, bhp0, h0) -> dict:
+    """One step of the fast kernel's selfish form replayed by itself: the
+    (miner, run) selfish flags ``sel_mr``, the step's winner ``ow``, who
+    ``adopted``, the ``active`` runs, the private counts before and after
+    the step, ``bhp`` and the heights at entry. A selfish find appends (+1)
+    or races (-1, its push the find's); a private count below that without
+    an adoption is a reveal (a reveal and an adoption exclude each other).
+    Returns 0-d tensors: the selfish finds, races and reveal pushes, and the
+    warp-steps (runs 2w and 2w + 1 share a warp, ``RunPair``) that are
+    active, in which any run of the warp reveals (how often a reveal branch
+    the whole warp takes is taken), and in which any run holds a private
+    block at entry or finds selfishly (how often the warp needs the private
+    chain at all)."""
+    sw = ow & sel_mr
+    race = sw & (npriv0 == 1) & (bhp0 == h0)
+    reveal = (npriv1.long() < npriv0.long() + sw.long() - 2 * race.long()) & ~adopted
+
+    def warps(run):  # (R,) -> the warps in which any run holds
+        return torch.cat([run, run.new_zeros(run.numel() % 2)]).view(-1, 2).any(1).sum()
+
+    return dict(sel_finds=sw.sum(), races=race.sum(), reveals=reveal.sum(),
+                warp_steps=warps(active), reveal_warp_steps=warps(reveal.any(0)),
+                private_warp_steps=warps(((npriv0 > 0) | sw).any(0)))
 
 
 def exact_kernel_ops(m: int, active: int, finds: int, adopts: int, cp_accesses: int,
@@ -1095,8 +1123,10 @@ def main() -> None:
         sel_mr = (selfish.bool() if torch.is_tensor(selfish) else torch.tensor(
             [bool(x) for x in selfish], device=dev)[:, None].expand(m, runs)) \
             if fast_selfish else None
-        reveals, sel_active, sel_finds, sel_adopts = (
-            torch.zeros((), dtype=torch.int64, device=dev) for _ in range(4))
+        sel_active, sel_adopts = (torch.zeros((), dtype=torch.int64, device=dev)
+                                  for _ in range(2))
+        sel_counts = dict.fromkeys(("sel_finds", "races", "reveals", "warp_steps",
+                                    "reveal_warp_steps", "private_warp_steps"), 0)
         np_idx = event_loop.FAST_SELFISH_LEAVES.index("npriv")
         bhp_idx = event_loop.FAST_SELFISH_LEAVES.index("bhp")
         cp_accesses = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1125,15 +1155,11 @@ def main() -> None:
             adopted = (out[0][h_idx].long() - h0.long() - ow.long()) > 0
             a = adopted.sum(0)  # adopters per run
             if fast_selfish:
-                # A selfish find appends (+1) or races (-1, its push the
-                # find's); a private count below that without an adoption
-                # is a reveal (a reveal and an adoption exclude each other).
-                sw = ow & sel_mr
-                race = sw & (lv[np_idx] == 1) & (lv[bhp_idx][None] == h0)
-                np_want = lv[np_idx].long() + sw.long() - 2 * race.long()
-                reveals += ((out[0][np_idx].long() < np_want) & ~adopted).sum()
+                got_step = fast_selfish_step(
+                    torch, sel_mr, ow, adopted, lv[0][0] < mcap, lv[np_idx], out[0][np_idx],
+                    lv[bhp_idx], h0)
+                sel_counts = {k: v + got_step[k] for k, v in sel_counts.items()}
                 sel_active += (sel_mr.sum(0) * (out[1][2].long() - lv_ctr.long())).sum()
-                sel_finds += sw.sum()
                 sel_adopts += (adopted & sel_mr).sum()
             adopts += a.sum()
             adopts_sq += (a * a).sum()
@@ -1146,8 +1172,9 @@ def main() -> None:
                     f"{kernel} main-path chunk replayed one step per launch")
         add_helper_s("main_chunk replay", time.perf_counter() - t_replay)
         finds, adopts, cp_accesses = int(finds), int(adopts), int(cp_accesses)
-        reveals, sel_active = int(reveals), int(sel_active)
-        sel_finds, sel_adopts = int(sel_finds), int(sel_adopts)
+        sel_counts = {k: int(v) for k, v in sel_counts.items()}
+        reveals, sel_finds = sel_counts["reveals"], sel_counts["sel_finds"]
+        sel_active, sel_adopts = int(sel_active), int(sel_adopts)
         adopts_sq = int(adopts_sq)
         adopt_steps, contraction_loads = int(adopt_steps), int(contraction_loads)
         del out
@@ -1188,7 +1215,13 @@ def main() -> None:
             ring_note += f", {adopt_steps} adopting events, {contraction_loads} contraction loads"
         if fast_selfish:
             ring_note += (f", {sel_active} selfish (miner, event) pairs, {sel_finds} selfish "
-                          f"finds, {sel_adopts} selfish adoptions, {reveals} reveal pushes")
+                          f"finds, {sel_counts['races']} races, {sel_adopts} selfish "
+                          f"adoptions, {reveals} reveal pushes; of "
+                          f"{sel_counts['warp_steps']} "
+                          + ("steps of run pairs" if fl else "warp-steps (two runs a warp)")
+                          + f" {sel_counts['reveal_warp_steps']} reveal and "
+                          f"{sel_counts['private_warp_steps']} hold a private block or "
+                          "find selfishly")
         plain_note = f" on its first {PLAIN_RUNS} runs"
         print(f"[{label}] main-path chunk ({runs} runs x {me.chunk_steps} steps, M = {m}, "
               f"K = {k}, {active} active events, {finds} finds, {adopts} adopting pairs "
@@ -1212,7 +1245,7 @@ def main() -> None:
                     chunk_adopting_pairs=adopts, chunk_adopting_pairs_sq=adopts_sq,
                     chunk_cp_accesses=cp_accesses,
                     chunk_adopting_events=adopt_steps, chunk_rows_recorded=recorded,
-                    chunk_reveals=reveals,
+                    chunk_reveals=reveals, chunk_selfish=sel_counts if fast_selfish else None,
                     chunk_bytes=nbytes, chunk_ops=ops, chunk_contraction_loads=contraction_loads,
                     bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, sampler_ms=sampler_ms,
                     chunk_ms=chunk_ms)
@@ -2987,7 +3020,18 @@ def main() -> None:
         stats[name]["max_abs_err"] = max(err, stats[name]["max_abs_err"])
     print(f"[fast selfish] K1s {stats['event_loop_fast_selfish']['ms']:.3f} ms a busy chunk "
           f"against K1 {stats['event_loop_fast']['ms']:.3f} and K2s "
-          f"{stats['event_loop_exact']['ms']:.3f} in this run; on {card}")
+          f"{stats['event_loop_exact']['ms']:.3f}; K4fs "
+          f"{stats['event_loop_fast_selfish_packed']['ms']:.3f} against K4f "
+          f"{stats['event_loop_fast_packed']['ms']:.3f} (the propagation sweep's fast mix); "
+          f"K3fs {stats['event_loop_fast_selfish_flight']['ms']:.3f} against K3f "
+          f"{stats['event_loop_fast_flight']['ms']:.3f}; in this run, on {card}")
+    for name in ("event_loop_fast_selfish", "event_loop_fast_selfish_packed"):
+        c = stats[name]["chunk_selfish"]
+        print(f"[fast selfish] {name}: a busy chunk's {c['warp_steps']} warp-steps, "
+              f"{c['reveal_warp_steps']} ({c['reveal_warp_steps'] / c['warp_steps']:.2%}) in "
+              f"which a run reveals ({c['reveals']} reveal pushes), "
+              f"{c['private_warp_steps']} ({c['private_warp_steps'] / c['warp_steps']:.2%}) "
+              "in which a run holds a private block or finds selfishly")
 
     # (ii) The main paths: the fast selfish year (K1s) through
     # api.run_simulation, miner 0's share and stale rate the exact year's

@@ -12,7 +12,8 @@ turns (variants in order, then reversed); a variant that computes the same
 function is held against the checkout's kernel bit for bit. :func:`run`
 does this for an event-loop kernel, through
 tpusim_torch.event_loop.event_loop_chunk on one busy chunk (chunk 1, 8,192
-runs x 1,856 steps) of each case.
+runs x 1,856 steps) of each case, a case a configuration or, for a packed
+grid, a tuple of them.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from typing import Callable
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tpusim_torch import event_loop  # noqa: E402
+from tpusim_torch import event_loop, packed  # noqa: E402
 from tpusim_torch.config import SimConfig  # noqa: E402
 from tpusim_torch.csrc import build  # noqa: E402
 from tpusim_torch.engine import Engine, counters_to_kernel  # noqa: E402
@@ -191,12 +193,26 @@ def in_turns(tag: str, label: str, libs: dict[str, ctypes.CDLL], hook: str,
     return {name: min(t) for name, t in times.items()}
 
 
-def _busy_chunk(cfg: SimConfig):
-    """The event loop's arguments and options for chunk 1 of ``cfg``; with
+def _engine(cfg: SimConfig | tuple[SimConfig, ...]) -> Engine:
+    """An engine on the card for ``cfg``, or for a tuple of configurations a
+    packed one that shares their first's batch out evenly among them, as
+    packed._dispatch sets it up."""
+    if isinstance(cfg, SimConfig):
+        return Engine(cfg, "cuda")
+    eng = Engine(cfg[0], "cuda", packed=True)
+    counts = [eng.config.batch_size // len(cfg)] * len(cfg)
+    eng.params = packed.stack_params(list(cfg), counts, "cuda")
+    eng.run_durations = np.repeat([c.duration_ms for c in cfg], counts)
+    return eng
+
+
+def _busy_chunk(cfg: SimConfig | tuple[SimConfig, ...]):
+    """The event loop's arguments and options for chunk 1 of ``cfg`` (a
+    tuple: a packed grid of those points, :func:`_engine`); with
     ``rng="xoroshiro"`` its rows are X1's and the loop its consumed-row form,
     and with ``rng_batch=False`` as well there are no rows: the loop draws
     the words itself (X2r)."""
-    eng = Engine(cfg, "cuda")
+    eng = _engine(cfg)
     runs = eng.config.batch_size
     keys = eng.make_keys(0, runs)
     cap = torch.full((runs,), 2**29, dtype=torch.int32, device="cuda")
@@ -222,8 +238,8 @@ def _outputs(x) -> tuple:
     return x[0] + x[1] + (x[2] or ()) + tuple(x[3:])
 
 
-def run(tag: str, source: Path, variants: Variants, cases: dict[str, SimConfig],
-        lib_of: Callable[[SimConfig], Lib]) -> dict[str, dict[str, float]]:
+def run(tag: str, source: Path, variants: Variants, cases: dict[str, SimConfig | tuple],
+        lib_of: Callable[[SimConfig | tuple], Lib]) -> dict[str, dict[str, float]]:
     """Build every variant for every case's library and print, for each case,
     each variant's time a busy chunk; returns them, case -> variant -> ms."""
     if not torch.cuda.is_available():

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """What the per-event xoroshiro kernels (X2r) issue, from their SASS, beside
 the consumed-row kernels (X2) that do the same event loop on X1's rows, on
-one NVIDIA card.
+one NVIDIA card; with ``--lib``, what any event-loop library issues.
 
     python3 scripts/x2r_sass.py [--parent DIR] [--time]
+    python3 scripts/x2r_sass.py --lib event_loop_fast --lib event_loop_fast_selfish \
+        [--parent DIR]
     python3 scripts/x2r_sass.py --read smoke_out/x2r_sass
 
 Builds the default and selfish rosters' libraries (9 miners, K = 2):
@@ -24,6 +26,21 @@ float64 map is one inlined copy in every design; a map under the
 draw-ahead tile's refill has its 4 G draw shuffles on every path to it,
 one run on each find has none.
 
+Each kernel's step loop (the loop that spans the most instructions) is
+also counted by class (``STEP_CLASSES``: the integer ALU, IMAD on the FMA
+pipe, the collectives, memory, control, moves, the uniform datapath and
+the rest), with the fewest and the most instructions on any one pass
+through it from its head to its back edge (the basic blocks' weights
+summed along the lightest and the heaviest path; the heaviest only where
+the loop holds no inner loop): the fewest are what a step that takes no
+optional branch issues, in every lane of the warp. ``--lib NAME`` (any
+number of times; ``NAME`` a library of ``tpusim_torch/csrc/build.py``,
+at 9 miners and K = 2 unless written ``NAME-mM-kK``) counts those
+libraries in place of X2r's four, and with ``--parent`` the parent's
+builds of them too: so ``--lib event_loop_fast --lib
+event_loop_fast_selfish`` gives what the fast kernel's selfish form adds
+to a step (K1 against K1s; ``_packed`` for K4f against K4fs).
+
 With ``--parent DIR`` (a ``git archive`` of an earlier commit unpacked in
 DIR) that commit's X2r sources are built and counted too. With ``--time``
 the checkout's four kernels (and the parent's two X2r ones) are timed on
@@ -31,8 +48,9 @@ one busy chunk of each roster (chunk 1, 8,192 runs x 1,856 steps, the
 better of two turns of the mean of three calls, CUDA events), and X2r's
 time beyond X2's is printed as a share of X2r's: the draw and the map's
 share of the kernel, which issue bounds. The numbers also go to
-smoke_out/x2r_sass.json. ``--read DIR`` counts the kept ``.sass`` files of
-an earlier run again, with no card.
+smoke_out/x2r_sass.json (smoke_out/lib_sass.json with ``--lib``).
+``--read DIR`` counts the kept ``.sass`` files of an earlier run again,
+with no card.
 """
 
 from __future__ import annotations
@@ -55,6 +73,19 @@ OUT = ROOT / "smoke_out" / "x2r_sass"
 KERNELS = ("event_loop_fast_xoro", "event_loop_exact_xoro", "event_loop_fast_consumed",
            "event_loop_exact_consumed")
 FP64_ROOTS = {"DADD", "DMUL", "DFMA", "DSETP", "DSET", "DMNMX"}
+#: The step loop's instruction classes, by opcode root (a root that starts
+#: with U, the uniform datapath, is "uniform"; any root not named "other").
+STEP_CLASSES = {
+    "int_alu": {"IADD3", "LOP3", "ISETP", "SEL", "IMNMX", "VIMNMX", "SHF", "LEA", "PRMT",
+                "IABS", "FLO", "POPC", "BREV", "PLOP3", "P2R", "R2P", "SGXT", "BMSK", "LOP",
+                "IADD", "VIADD", "ISCADD"},
+    "imad": {"IMAD"},
+    "collective": {"SHFL", "VOTE", "REDUX", "MATCH"},
+    "memory": {"LDS", "STS", "LDG", "STG", "LD", "ST", "LDC", "ATOMS", "ATOM", "RED"},
+    "control": {"BRA", "BSSY", "BSYNC", "WARPSYNC", "EXIT", "BREAK", "CALL", "RET", "NOP",
+                "BAR", "YIELD"},
+    "move": {"MOV", "S2R", "CS2R", "MOVM"},
+}
 
 
 def _is_fp64(opcode: str) -> bool:
@@ -63,13 +94,22 @@ def _is_fp64(opcode: str) -> bool:
                                                                "FRND"})
 
 
-def _start(tree: Path, tag: str, name: str) -> tuple[Path, subprocess.Popen]:
+def _lib_key(text: str) -> tuple[str, int, int]:
+    """``NAME`` or ``NAME-mM-kK`` as (kernel, miners, group slots)."""
+    m = re.fullmatch(r"(\w+?)(?:-m(\d+))?(?:-k(\d+))?", text)
+    if m is None or m.group(1) not in build.SOURCES:
+        raise SystemExit(f"x2r_sass: no library {text!r} in tpusim_torch/csrc/build.py")
+    return m.group(1), int(m.group(2) or 9), int(m.group(3) or 2)
+
+
+def _start(tree: Path, tag: str, key: tuple[str, int, int]) -> tuple[Path, subprocess.Popen]:
+    name, miners, slots = key
     src = tree / "tpusim_torch" / "csrc" / build.SOURCES[name].name
-    lib = OUT / f"{tag}_{name}_m9.so"
+    lib = OUT / (f"{tag}_{name}_m{miners}" + (f"_k{slots}" if slots != 2 else "") + ".so")
     OUT.mkdir(parents=True, exist_ok=True)
-    return lib, subprocess.Popen([build.nvcc(), *build._flags(name, 9, 2), "-o", str(lib),
-                                  str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 text=True)
+    return lib, subprocess.Popen([build.nvcc(), *build._flags(name, miners, slots), "-o",
+                                  str(lib), str(src)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
 
 
 def _finish(key, lib: Path, proc: subprocess.Popen) -> list[int]:
@@ -150,6 +190,82 @@ def shuffles_above(ins: list[tuple[int, str]], is_fp64) -> list[int]:
     return out
 
 
+def _class(opcode: str) -> str:
+    root = opcode.split(".")[0]
+    if root.startswith("U"):
+        return "uniform"
+    return next((c for c, roots in STEP_CLASSES.items() if root in roots), "other")
+
+
+def step_loop(raw: list[tuple[int, str]]) -> dict | None:
+    """The step loop's instructions by class, and the fewest and most on one
+    pass through it (None for a function without a loop)."""
+    ins = [(a, re.sub(r"^@!?U?P\w+\s+", "", t)) for a, t in raw]
+    loops = _loops(ins)
+    if not loops:
+        return None
+    lo, hi = max(loops, key=lambda span: span[1] - span[0])
+    ops = [t.split()[0] for a, t in ins if lo <= a <= hi and t]
+    by_class = {c: 0 for c in (*STEP_CLASSES, "uniform", "other")}
+    for op in ops:
+        by_class[_class(op)] += 1
+    blocks, succ = _blocks(raw)
+    inside = {k for k, blk in enumerate(blocks) if lo <= raw[blk[0]][0] <= hi}
+    head = next(k for k in inside if raw[blocks[k][0]][0] == lo)
+    tail = next(k for k in inside if raw[blocks[k][0]][0] <= hi <= raw[blocks[k][-1]][0])
+    weight = {k: len(blocks[k]) for k in inside}
+    # The pass's edges: inside the loop, none back to its head.
+    edges = {k: [j for j in succ[k] if j in inside and j != head] for k in inside}
+    fewest = _lightest(head, tail, edges, weight)
+    order, seen, cyclic = [], {}, False
+
+    def visit(k: int) -> None:
+        nonlocal cyclic
+        seen[k] = 1
+        for j in edges[k]:
+            if seen.get(j) == 1:
+                cyclic = True
+            elif j not in seen:
+                visit(j)
+        seen[k] = 2
+        order.append(k)
+
+    visit(head)
+    most = None if cyclic else _heaviest(head, tail, edges, weight, order[::-1])
+    return {"instructions": len(ops), "by_class": by_class, "fewest_per_step": fewest,
+            "most_per_step": most}
+
+
+def _lightest(head: int, tail: int, edges: dict, weight: dict) -> int | None:
+    """The least sum of block weights on a path from head to tail (None if
+    there is none): Dijkstra's."""
+    import heapq
+
+    best, heap = {head: weight[head]}, [(weight[head], head)]
+    while heap:
+        d, k = heapq.heappop(heap)
+        if k == tail:
+            return d
+        if d > best[k]:
+            continue
+        for j in edges[k]:
+            if d + weight[j] < best.get(j, float("inf")):
+                best[j] = d + weight[j]
+                heapq.heappush(heap, (best[j], j))
+    return None
+
+
+def _heaviest(head: int, tail: int, edges: dict, weight: dict, order: list[int]) -> int | None:
+    """The greatest sum of block weights on a path from head to tail, over
+    the blocks' topological ``order`` (the edges hold no cycle)."""
+    best = {head: weight[head]}
+    for k in order:
+        if k in best:
+            for j in edges[k]:
+                best[j] = max(best.get(j, 0), best[k] + weight[j])
+    return best.get(tail)
+
+
 def count(lib: Path) -> list[dict]:
     """Each kernel function's instructions by class, its SASS kept beside
     the library."""
@@ -184,6 +300,7 @@ def count_text(sass: str) -> list[dict]:
             "loops": len(loops),
             "fp64_in_loops": sum(in_loops),
             "fp64_in_loops_shfl_above": [min(above), max(above)] if above else None,
+            "step_loop": step_loop(raw),
         })
     return out
 
@@ -239,6 +356,12 @@ def _print(what: str, f: dict) -> None:
           f"float64 ({f['fp64_in_loops']} inside loops, at {f['fp64_span']}, each with "
           f"{f['fp64_in_loops_shfl_above']} shuffles on every path to it), {f['shfl']} SHFL, "
           f"{f['loops']} loops", flush=True)
+    step = f["step_loop"]
+    if step:
+        print(f"[step] {what} {f['function']}: {step['instructions']} instructions in the step "
+              f"loop ({', '.join(f'{c} {n}' for c, n in step['by_class'].items())}); "
+              f"{step['fewest_per_step']} on the lightest pass, {step['most_per_step']} on the "
+              "heaviest", flush=True)
 
 
 def main() -> None:
@@ -247,7 +370,11 @@ def main() -> None:
     ap.add_argument("--time", action="store_true", help="time the busy chunks too")
     ap.add_argument("--read", type=Path, help="count the .sass files of an earlier run in "
                     "this directory instead, with no card")
+    ap.add_argument("--lib", action="append", default=[], type=_lib_key,
+                    help="count this library (NAME or NAME-mM-kK) in place of X2r's four")
     args = ap.parse_args()
+    if args.lib and args.time:
+        raise SystemExit("x2r_sass: --time times X2r's four libraries, not --lib ones")
     if args.read:
         for path in sorted(args.read.glob("*.sass")):
             for f in count_text(path.read_text()):
@@ -258,20 +385,23 @@ def main() -> None:
     name = card()
     trees = {"checkout": ROOT, **({"parent": args.parent} if args.parent else {})}
     record: dict = {"card": name, "sass": {}}
-    started = {(tag, kernel): _start(tree, tag, kernel) for tag, tree in trees.items()
-               for kernel in KERNELS if tag == "checkout" or "_xoro" in kernel}
+    keys = args.lib or [(kernel, 9, 2) for kernel in KERNELS]
+    started = {(tag, key): _start(tree, tag, key) for tag, tree in trees.items()
+               for key in keys if tag == "checkout" or args.lib or "_xoro" in key[0]}
     libs = {}
-    for (tag, kernel), (path, proc) in started.items():
-        regs = _finish((tag, kernel), path, proc)
-        libs[tag, kernel] = path
+    for (tag, key), (path, proc) in started.items():
+        regs = _finish((tag, key), path, proc)
+        what = f"{tag} {key[0]}" + (f"-m{key[1]}-k{key[2]}" if args.lib else "")
+        libs[tag, key[0]] = path
         funcs = count(path)
-        record["sass"][f"{tag} {kernel}"] = {"registers": regs, "functions": funcs}
+        record["sass"][what] = {"registers": regs, "functions": funcs}
         for f in funcs:
-            _print(f"{tag} {kernel}", f)
-        print(f"[sass] {tag} {kernel}: registers {regs}", flush=True)
+            _print(what, f)
+        print(f"[sass] {what}: registers {regs}", flush=True)
     if args.time:
         record["time_ms"] = time_chunks(libs)
-    (ROOT / "smoke_out" / "x2r_sass.json").write_text(json.dumps(record, indent=1))
+    (ROOT / "smoke_out" / ("lib_sass.json" if args.lib else "x2r_sass.json")).write_text(
+        json.dumps(record, indent=1))
     print(json.dumps({"x2r_sass": "ok", "card": name}))
 
 

@@ -1433,6 +1433,100 @@ def test_fast_selfish_packed_grid_card_equals_cpu(cuda):
             np.testing.assert_array_equal(a["tele"][k], b["tele"][k], err_msg=k)
 
 
+def _private_pairs(eng, runs: int, steps: int, seed: int, device):
+    """The event loop's arguments for a chunk from a seeded fast selfish
+    state in which the two runs of each warp (runs 2w and 2w + 1) differ:
+    run 2w's selfish miners hold 1-3 private blocks (their whole chains),
+    run 2w + 1's none. In every fourth run the count is 1 and bhp level with
+    it, and each run's first find is its lowest selfish miner's (miner 1 in
+    an honest run): a race on the chunk's first step there, a private append
+    in the other even runs. Then numpy-seeded rows, winners by the first
+    roster's shares and intervals of 0-5 s."""
+    from tpusim_torch.engine import init_counters
+    from tpusim_torch.state import init_state
+
+    m = eng.n_miners
+    prop, selfish = eng.roster()
+    sel = (selfish.bool() if torch.is_tensor(selfish) else torch.tensor(
+        selfish, dtype=torch.bool, device=device)[:, None].expand(m, runs)).to(device)
+    rng = np.random.default_rng(seed)
+    ridx = torch.arange(runs, device=device)
+    held = torch.from_numpy(rng.integers(1, 4, runs)).to(device)
+    held = torch.where(ridx % 4 == 0, 1, torch.where(ridx % 2 == 1, 0, held))
+    chain = (sel * held[None]).to(torch.int16)
+    names = event_loop.FAST_SELFISH_LEAVES
+    lv = dict(zip(names, state_to_kernel(
+        init_state(runs, m, 2, torch.int16, False, device, any_selfish=True))))
+    lv["npriv"], lv["height"], lv["ocnt"] = chain, chain.clone(), chain.clone()
+    lv["bhp"] = (ridx % 4 == 0).to(torch.int16)[None]
+    shares = np.array([mc.hashrate_pct for mc in eng.config.network.miners], float) / 100
+    w = rng.choice(m, size=(steps, runs), p=shares / shares.sum()).astype(np.int32)
+    first = torch.where(sel.any(0), sel.int().argmax(0), 1)
+    w[0] = first.cpu().numpy()
+    dt = rng.integers(0, 5000, size=(steps, runs)).astype(np.int32)
+    dt[rng.random((steps, runs)) < 0.05] = 0
+    rows = torch.from_numpy(np.stack([w, dt], axis=1)).to(device)
+    cap = torch.full((runs,), 2**29, dtype=torch.int32, device=device)
+    return (rows, cap, prop.to(device), tuple(lv[n] for n in names),
+            counters_to_kernel(init_counters(runs, m, device)),
+            selfish.to(device) if torch.is_tensor(selfish) else selfish)
+
+
+def _reveals_by_step(args) -> list[torch.Tensor]:
+    """The plain version on the CPU one step at a time: for each step, the
+    (miner, run) pairs that revealed (a private count below the find's
+    append or race without an adoption) and, at step 0, those that raced."""
+    on_cpu = lambda x: x.cpu() if torch.is_tensor(x) else x
+    rows, cap, prop, leaves, counters, selfish = (
+        tuple(map(on_cpu, a)) if isinstance(a, tuple) else on_cpu(a) for a in args)
+    names = event_loop.FAST_SELFISH_LEAVES
+    h_i, np_i, bhp_i = (names.index(n) for n in ("height", "npriv", "bhp"))
+    m = leaves[h_i].shape[0]
+    sel = selfish.bool() if torch.is_tensor(selfish) else torch.tensor(
+        selfish, dtype=torch.bool)[:, None]
+    out, steps = (leaves, counters), []
+    for s in range(rows.shape[0]):
+        lv = out[0]
+        ow = (torch.arange(m)[:, None] == rows[s, 0][None]) & (lv[0][0] == lv[1][0])
+        out = event_loop_chunk_plain(rows[s:s + 1], cap, prop, *out, selfish)[:2]
+        sw = ow & sel
+        race = sw & (lv[np_i] == 1) & (lv[bhp_i] == lv[h_i])
+        adopted = (out[0][h_i].long() - lv[h_i].long() - ow.long()) > 0
+        steps.append(((out[0][np_i].long() < lv[np_i].long() + sw.long() - 2 * race.long())
+                      & ~adopted, race))
+    return steps
+
+
+@pytest.mark.parametrize("packed_form", [False, True], ids=["k1s", "k4fs"])
+def test_fast_selfish_reveal_diverging_in_a_warp_equals_plain(cuda, packed_form):
+    """K1s and K4fs on chunks in which the two runs of a warp take the
+    reveal branch apart: private blocks seeded in one run of each pair
+    (:func:`_private_pairs`), a race on the chunk's first step, a reveal on
+    its last; 250 runs (a partial block), every leaf and counter equal to
+    the plain version's."""
+    runs, steps = 250, 96
+    if packed_form:
+        eng = _packed_engine(_lane_configs("selfish", mode="fast"), [64, 62, 62, 62])
+    else:
+        eng = Engine(SimConfig(network=reference_selfish_network(), mode="fast",
+                               state_dtype="int16"), "cuda")
+    args = _private_pairs(eng, runs, steps, 17, cuda)
+    kernel = "event_loop_fast_selfish" + ("_packed" if packed_form else "")
+    before = dict(event_loop.launches)
+    got = event_loop.event_loop_chunk(*args)
+    torch.cuda.synchronize()
+    assert event_loop.launches == {**before, kernel: before[kernel] + 1}
+    want = event_loop_chunk_plain(*args)
+    names = event_loop.FAST_SELFISH_LEAVES + event_loop.TELE_LEAVES
+    for name, g, w in zip(names, got[0] + got[1], want[0] + want[1], strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    by_step = _reveals_by_step(args)
+    assert by_step[0][1].any(), "no race on the chunk's first step"
+    assert by_step[-1][0].any(), "no reveal on the chunk's last step"
+    pairs = [rev.any(0).view(-1, 2) for rev, _ in by_step]
+    assert any((p[:, 0] != p[:, 1]).any() for p in pairs), "no warp's runs diverge"
+
+
 def test_fast_selfish_libraries_keep_their_sass(cuda):
     """The fast selfish libraries compile to their pinned instructions (the
     ``fast_selfish`` set of torch_sass_digests.json), for the nvcc release

@@ -192,9 +192,15 @@
 
 // Fast mode on a selfish roster (-DTPUSIM_FAST_SELFISH=1, K1s; with FLIGHT
 // K3fs, with PACKED K4fs): the private chain and the selfish branches, as
-// the exact kernel has them (the file's header). The selfish flags are one
-// more operand: their bit mask (bit m for miner m), or per run (M, R) int32
-// when PACKED. Without the flag the kernel's text is as it was.
+// the exact kernel has them (the file's header), their per-lane rules in
+// fast_selfish_step.cuh. The selfish flags are one more operand: their bit
+// mask (bit m for miner m), or per run (M, R) int32 when PACKED. A find's
+// race or private append changes its one push; the reveal, a second push,
+// runs only on the warp-steps in which a lane of the warp reveals or
+// adopts, under the adoption's vote of the whole warp, not predicated in
+// every lane on every step (a third of a busy chunk's warp-steps reveal on
+// the selfish rosters, and nearly all of those adopt too). Without the flag
+// the kernel's text is as it was.
 #ifndef TPUSIM_FAST_SELFISH
 #define TPUSIM_FAST_SELFISH 0
 #endif
@@ -203,6 +209,9 @@ static_assert(!TPUSIM_FAST_SELFISH || !(TPUSIM_WIDE || TPUSIM_RAW_WORDS || TPUSI
               "the fast selfish kernel: narrow rosters at K = 2 on pre-mapped threefry rows");
 #if TPUSIM_FAST_SELFISH && TPUSIM_XORO_WORDS
 #error "the fast selfish kernel runs on pre-mapped threefry rows"
+#endif
+#if TPUSIM_FAST_SELFISH
+#include "fast_selfish_step.cuh"
 #endif
 #if TPUSIM_FAST_SELFISH && TPUSIM_PACKED
 #define TPUSIM_SELFISH_PARAM , const int* __restrict__ selfish_in
@@ -586,14 +595,13 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
       for (int k = 0; k < P; ++k) {
         const bool ow = won && g.miner(k) == wq;
 #if TPUSIM_FAST_SELFISH
-        // A selfish winner appends privately, except that a find on top of
-        // its one private block while the public chain is level with it
-        // (bhp) publishes both: the race, a push of count 2. The winner's
-        // lane holds every operand, so no lane waits on another.
-        const bool race = ow && sel[k] && npriv[k] == 1 && bhp == height[k];
-        const bool append = ow && sel[k] && !race;
-        npriv[k] += append ? 1 : (race ? -1 : 0);
-        ovf += push2(a0[k], a1[k], c0[k], c1[k], t + prop[k], race ? 2 : 1, ow && !append);
+        // A selfish winner appends privately or races (selfish_find): the
+        // find's one push holds 2 blocks on a race, and a private append
+        // pushes none. Only the winner's lane moves its count, and it holds
+        // every operand, so no lane waits on another.
+        int count;
+        const bool pushes = selfish_find(ow, sel[k], npriv[k], bhp, height[k], count);
+        ovf += push2(a0[k], a1[k], c0[k], c1[k], t + prop[k], count, pushes);
 #else
         if constexpr (kSlots == 2) {
           ovf += push2(a0[k], a1[k], c0[k], c1[k], t + prop[k], 1, ow);
@@ -640,18 +648,21 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
       for (int k = 0; k < P; ++k) is_best[k] = pub[k] == best_h && base[k] == best_tip;
       const int b = g.lowest(is_best);
 #if TPUSIM_FAST_SELFISH
-      // Selfish reveal, before the reorg: a selfish miner whose chain is at
+      // Selfish reveal, with the reorg: a selfish miner whose chain is at
       // least as long as the best published one publishes enough private
       // blocks to match or beat it, all of them at a lead of one. Each lane
-      // reveals its own miners'; height is unchanged, so the adoption test
-      // below is not.
+      // tests its own miners here (selfish_reveals; a lane without a miner
+      // holds no selfish flag); the count and the push run in the
+      // adoption's branch below. Height is unchanged, so the adoption test
+      // is not.
+      int lead[P];
+      bool reveal[P];
+      bool reveals = false;
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        const int lead = height[k] - best_h;
-        const bool reveal = own[k] && notify && sel[k] && lead >= 0 && npriv[k] > lead;
-        const int n = (npriv[k] > 1 && lead == 1) ? npriv[k] : npriv[k] - lead;
-        ovf += push2(a0[k], a1[k], c0[k], c1[k], t + prop[k], n, reveal);
-        if (reveal) npriv[k] -= n;
+        lead[k] = height[k] - best_h;
+        reveal[k] = selfish_reveals(notify, sel[k], lead[k], npriv[k]);
+        reveals |= reveal[k];
       }
 #endif
 
@@ -667,7 +678,21 @@ event_loop_kernel(const int* __restrict__ rows, const int* __restrict__ cap_in,
       }
       int dmax = 0;
       int miner2 = M;  // the adoption row's miner: the deepest pop
+#if TPUSIM_FAST_SELFISH
+      // The reveal's count and push under the adoption's vote, taken on the
+      // warp-steps in which a lane of the warp adopts or reveals (a vote of
+      // the full warp in every form, a warp a run too): a revealing miner
+      // does not adopt (its lead is at least 0), and the adoption below
+      // changes nothing where no miner of the run adopts.
+      if (__any_sync(kFullMask, any != 0 || reveals)) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const int n = selfish_reveal(reveal[k], lead[k], npriv[k]);
+          ovf += push2(a0[k], a1[k], c0[k], c1[k], t + prop[k], n, reveal[k]);
+        }
+#else
       if (g.any(any != 0)) {
+#endif
         // Reads of b's entries, diagonals corrected from ocnt (the
         // authority): b's unpublished count and own count from b's lane, b's
         // column of own_cp and row of own_in at each of this lane's miners.
